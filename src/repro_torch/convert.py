@@ -1,0 +1,76 @@
+"""Carry the JAX package's state into the port.
+
+The reference's state crosses as plain data, so this module needs neither
+``jax`` nor ``repro``:
+
+* configs as their JSON form (``EscgParams``, ``Scenario``,
+  ``EngineConfig``, ``RunConfig`` — objects with ``to_json()`` or the JSON
+  text itself), which both packages share field for field;
+* a key as its ``uint32`` key data (``numpy.asarray(jax.random.key_data(k))``
+  or a raw ``PRNGKey``);
+* a lattice or a padded dominance matrix as a numpy array.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .core.device import DeviceLike, resolve_device
+from .core.params import EscgParams
+from .core.scenarios import EngineConfig, RunConfig, Scenario
+from .core.threefry import MASK
+
+_CONFIGS = {cls.__name__: cls
+            for cls in (EscgParams, Scenario, EngineConfig, RunConfig)}
+
+
+def config_from_jax(obj, kind: Optional[str] = None):
+    """The port's counterpart of a reference config object (or of its JSON
+    text, with ``kind`` naming the class: 'EscgParams', 'Scenario',
+    'EngineConfig' or 'RunConfig')."""
+    if isinstance(obj, str):
+        if kind is None:
+            raise ValueError("JSON text needs kind= to say which config")
+        text = obj
+    else:
+        kind = kind or type(obj).__name__
+        text = obj.to_json()
+    if kind not in _CONFIGS:
+        raise ValueError(f"unknown config kind {kind!r}; have "
+                         f"{tuple(_CONFIGS)}")
+    return _CONFIGS[kind].from_json(text)
+
+
+def key_from_jax(key_data) -> torch.Tensor:
+    """A port key (int64 (2,) on the host) from uint32 key data."""
+    data = np.asarray(key_data)
+    if data.shape != (2,) or not np.issubdtype(data.dtype, np.integer):
+        raise ValueError(f"key data must be two integers, got {data!r}")
+    return torch.tensor([int(v) & MASK for v in data.tolist()],
+                        dtype=torch.int64)
+
+
+def key_to_numpy(key: torch.Tensor) -> np.ndarray:
+    """A port key as the reference's uint32 key data."""
+    return np.asarray([int(v) & MASK for v in key.tolist()], np.uint32)
+
+
+def grid_from_jax(grid, device: Optional[DeviceLike] = None
+                  ) -> torch.Tensor:
+    """A lattice as a tensor of the same dtype on ``device`` (default: the
+    card)."""
+    arr = np.ascontiguousarray(np.asarray(grid))
+    if arr.ndim != 2 or arr.dtype not in (np.int8, np.int16, np.int32):
+        raise ValueError(f"a lattice is a 2-D int8/int16/int32 array, got "
+                         f"{arr.dtype} {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def dom_from_jax(dom, device: Optional[DeviceLike] = None) -> torch.Tensor:
+    """The padded (S+1, S+1) dominance matrix as float32 on ``device``."""
+    arr = np.asarray(dom, dtype=np.float32)
+    if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
+        raise ValueError(f"dominance must be square, got {arr.shape}")
+    return torch.from_numpy(arr.copy()).to(resolve_device(device))

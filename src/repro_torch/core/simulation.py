@@ -1,0 +1,171 @@
+"""Single-lattice MCS loop (port of ``repro.core.simulation``, paper
+Algorithms 3.3 / 3.7).
+
+A *chunk* of ``chunk_mcs`` MCS runs without a host decision: the per-MCS
+key chain of the whole chunk is computed on the host before its launches
+(it does not depend on the lattice), the lattice and the per-MCS counts
+stay on the device, and the counts come back to the host once per chunk
+for the stasis early-exit (paper §3.2.2) and the hooks. ``k_mcs > 1`` runs
+each chunk as ``divmod(n_mcs, k_mcs)`` megakernel launches, bit-identical
+to ``k_mcs = 1``.
+
+The observable pipeline (DESIGN.md §11) is not ported: a run that
+resolves to a non-empty observable set raises ``NotImplementedError``.
+"""
+from __future__ import annotations
+
+import json
+from dataclasses import dataclass, field
+from typing import Callable, Dict, Optional, Sequence
+
+import numpy as np
+import torch
+
+from . import dominance as dom_mod
+from . import engines, lattice, metrics, threefry
+from .device import DeviceLike, resolve_device
+from .params import EscgParams
+from .results import decode_observables, encode_observables
+from .scenarios import resolve_config
+
+
+@dataclass
+class SimResult:
+    """Single-lattice run result. ``observables['densities']`` has shape
+    ``(mcs_recorded + 1, S + 1)`` float64 with row 0 the initial
+    lattice."""
+    grid: np.ndarray               # final lattice (H, W)
+    observables: Dict[str, np.ndarray] = field(default_factory=dict)
+    mcs_completed: int = 0
+    stasis_mcs: int = -1           # -1 if never reached stasis
+    kept_fraction: float = 1.0     # applied / attempted proposals
+
+    @property
+    def densities(self) -> np.ndarray:
+        return self.observables["densities"]
+
+    def to_json(self) -> str:
+        return json.dumps({
+            "grid": np.asarray(self.grid).tolist(),
+            "grid_dtype": str(np.asarray(self.grid).dtype),
+            "observables": encode_observables(self.observables),
+            "mcs_completed": int(self.mcs_completed),
+            "stasis_mcs": int(self.stasis_mcs),
+            "kept_fraction": float(self.kept_fraction),
+        })
+
+    @staticmethod
+    def from_json(s: str) -> "SimResult":
+        d = json.loads(s)
+        return SimResult(
+            grid=np.asarray(d["grid"], dtype=np.dtype(d["grid_dtype"])),
+            observables=decode_observables(d["observables"]),
+            mcs_completed=d["mcs_completed"],
+            stasis_mcs=d["stasis_mcs"],
+            kept_fraction=d["kept_fraction"])
+
+
+def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
+    """``chunk(grid, key, n_mcs) -> (grid, key, counts (n, S+1), kept,
+    attempts)``, counts on the device.
+
+    The key chain of the chunk is one host computation; with ``k_mcs > 1``
+    its seeds and shifts go to the device in one copy, and the chunk runs
+    ``n_mcs // k_mcs`` megakernel launches plus one remainder launch."""
+    s = params.species
+    k_group = params.k_mcs
+
+    def chunk(grid, key, n_mcs: int):
+        key, seeds, shifts = built.schedule(key, n_mcs)
+        parts = []
+        if k_group > 1:
+            sched = torch.stack([seeds, shifts]).to(built.device)
+            q, r = divmod(n_mcs, k_group)
+            groups = [k_group] * q + ([r] if r else [])
+            start = 0
+            for size in groups:
+                stop = start + size
+                grid, cnts = built.multi_mcs(grid, sched[0, start:stop],
+                                             sched[1, start:stop])
+                parts.append(cnts.to(torch.int64))
+                start = stop
+        else:
+            for seed, shift in zip(seeds.tolist(), shifts.tolist()):
+                grid = built.one_mcs(grid, seed, shift)
+                parts.append(metrics.counts(grid, s)[None])
+        cnts = (torch.cat(parts) if parts else
+                torch.zeros((0, s + 1), dtype=torch.int64,
+                            device=built.device))
+        attempts = n_mcs * built.attempts_per_mcs
+        return grid, key, cnts, attempts, attempts
+
+    return chunk
+
+
+def simulate(params, dom: Optional[np.ndarray] = None,
+             grid0=None, key: Optional[torch.Tensor] = None,
+             hooks: Sequence[Callable[[int, torch.Tensor, np.ndarray],
+                                      None]] = (),
+             stop_on_stasis: bool = True, *, engine=None, run=None,
+             device: Optional[DeviceLike] = None) -> SimResult:
+    """Run the full simulation (paper Algorithm 3.3 control flow) on
+    ``device`` (default: the card; ``device='cpu'`` runs the plain path).
+
+    ``simulate(scenario, engine=EngineConfig(...), run=RunConfig(...))``;
+    an ``EscgParams`` in the first slot carries all three layers. ``key``
+    is a threefry key (``threefry.PRNGKey(seed)`` by default); without
+    ``grid0`` the lattice is drawn from ``split(key)`` first, as in the
+    reference.
+
+    Chunked stasis semantics (paper §3.2.2): ``stasis_mcs`` is exact to
+    the MCS, but the run only stops at the next chunk boundary. Hooks get
+    ``(mcs_done, grid, counts)`` once per chunk.
+    """
+    p, dom = resolve_config(params, dom, engine, run)
+    p = p.validate()
+    if p.observables:
+        raise NotImplementedError(
+            f"simulate in repro_torch does not stream observables yet "
+            f"(the run asks for {p.observables}); pass "
+            f"run=RunConfig(observables=()). The observable pipeline is "
+            f"ROADMAP.md Queue 1, 'Observables'")
+    dev = resolve_device(device)
+    if dom is None:
+        dom = dom_mod.circulant(p.species)
+    if key is None:
+        key = threefry.PRNGKey(p.seed)
+    cell_dt = getattr(torch, p.cell_dtype)
+    if grid0 is None:
+        key, k0 = threefry.split(key)
+        grid0 = lattice.init_grid(k0, p.height, p.length, p.species,
+                                  p.empty, dtype=cell_dt, device=dev)
+    grid = torch.as_tensor(grid0).to(device=dev, dtype=cell_dt).contiguous()
+
+    eng = engines.build(p, dom, dev)
+    chunk_fn = build_chunk_fn(p, eng)
+    hist = [metrics.counts(grid, p.species).cpu().numpy()[None]]
+    mcs_done, stasis_mcs = 0, -1
+    kept_total, att_total = 0, 0
+
+    while mcs_done < p.mcs:
+        n_mcs = min(p.chunk_mcs, p.mcs - mcs_done)
+        grid, key, cnts, kept, att = chunk_fn(grid, key, n_mcs)
+        cnts_h = cnts.cpu().numpy()          # one transfer per chunk
+        hist.append(cnts_h)
+        kept_total += kept
+        att_total += att
+        mcs_done += n_mcs
+        alive = (cnts_h[:, 1:] > 0).sum(axis=1)
+        if stop_on_stasis and stasis_mcs < 0 and np.any(alive <= 1):
+            stasis_mcs = mcs_done - n_mcs + int(np.argmax(alive <= 1)) + 1
+        for hook in hooks:
+            hook(mcs_done, grid, cnts_h)
+        if stop_on_stasis and stasis_mcs >= 0:
+            break
+
+    densities = np.concatenate(hist, axis=0) / p.n_cells
+    return SimResult(grid=grid.cpu().numpy(),
+                     observables={"densities": densities},
+                     mcs_completed=mcs_done, stasis_mcs=stasis_mcs,
+                     kept_fraction=(kept_total / att_total)
+                     if att_total else 1.0)

@@ -1,0 +1,56 @@
+"""Shifted-window synchronous sublattice sweep (port of
+``repro.core.sublattice``, DESIGN.md §2).
+
+The torus is cut into (th x tw) tiles. Every tile applies its K interior
+proposals in order; proposal cells are restricted to the tile interior
+(inset 1) so no tile writes outside itself. ``tile_update`` here is the
+plain version of the tile sweep that the CUDA kernels run one thread per
+tile: a loop over the K proposals, each step vectorised over all tiles.
+"""
+from __future__ import annotations
+
+import torch
+
+from .lattice import DIRS
+from .rng import ProposalBatch
+from .rules import apply_pair
+
+
+def tile_update(tiles: torch.Tensor, props: ProposalBatch, t_eps: float,
+                t_eps_mu: float, dom: torch.Tensor) -> torch.Tensor:
+    """Apply each tile's K proposals in order: ``tiles`` (T, th, tw),
+    ``props`` fields (T, K). Returns the updated tiles (a new tensor)."""
+    t, th, tw = tiles.shape
+    iw = tw - 2
+    dirs = torch.as_tensor(DIRS, dtype=torch.int64, device=tiles.device)
+    flat = tiles.reshape(t, th * tw).clone()
+    rows = torch.arange(t, device=tiles.device)
+    cell = props.cell.long()
+    r = 1 + cell // iw
+    c = 1 + cell % iw
+    d = dirs[props.dirn.long()]
+    here = r * tw + c
+    there = (r + d[..., 0]) * tw + (c + d[..., 1])
+    for j in range(cell.shape[1]):
+        s = flat[rows, here[:, j]]
+        n = flat[rows, there[:, j]]
+        ns, nn = apply_pair(s, n, props.u_act[:, j], props.u_dom[:, j],
+                            t_eps, t_eps_mu, dom)
+        flat[rows, here[:, j]] = ns
+        flat[rows, there[:, j]] = nn
+    return flat.reshape(t, th, tw)
+
+
+def to_tiles(grid: torch.Tensor, th: int, tw: int) -> torch.Tensor:
+    """(H, W) -> (T, th, tw), raster tile order."""
+    h, w = grid.shape
+    return (grid.reshape(h // th, th, w // tw, tw)
+                .permute(0, 2, 1, 3)
+                .reshape(-1, th, tw))
+
+
+def from_tiles(tiles: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    t, th, tw = tiles.shape
+    return (tiles.reshape(h // th, w // tw, th, tw)
+                 .permute(0, 2, 1, 3)
+                 .reshape(h, w))

@@ -1,0 +1,157 @@
+"""Threefry-2x32 keys and samplers, bit-identical to ``jax.random``.
+
+The reference drives every random choice outside the fused kernels
+through ``jax.random`` with the threefry2x32 generator under the
+non-partitionable scheme (``jax.threefry_partitionable(False)``, the
+scheme the goldens were frozen under; DESIGN.md §3). This module
+reproduces that scheme on PyTorch tensors so that the same seed gives the
+same lattice and the same per-MCS schedule:
+
+* a key is an int64 tensor of shape (2,) holding two uint32 words;
+* ``threefry_2x32`` hashes a flat counter array split into two halves,
+  padded with one zero word when its length is odd;
+* ``split(key, n)`` hashes the counters 0..2n-1, ``fold_in(key, d)``
+  hashes the seed key (0, d), ``random_bits`` hashes 0..size-1;
+* ``uniform`` keeps the top 23 bits as a float32 mantissa in [1, 2) and
+  subtracts 1; ``randint`` draws two words per value and folds them with
+  the span/multiplier scheme of ``jax.random.randint``.
+
+uint32 arithmetic runs on int64 tensors masked back to 32 bits. Keys live
+on the host; the counter arrays, and so the draws, live on ``device``.
+"""
+from __future__ import annotations
+
+import math
+from typing import Sequence, Tuple, Union
+
+import torch
+
+MASK = 0xFFFFFFFF
+_PARITY = 0x1BD11BDA
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+Shape = Union[int, Sequence[int]]
+
+
+def mul32(a: torch.Tensor, b) -> torch.Tensor:
+    """``a * b mod 2^32`` for uint32 values held in int64, without the
+    signed overflow a plain 32x32-bit product could reach."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & MASK
+
+
+def _shape(shape: Shape) -> Tuple[int, ...]:
+    return (int(shape),) if isinstance(shape, int) else tuple(
+        int(d) for d in shape)
+
+
+def _words(key: torch.Tensor) -> Tuple[int, int]:
+    if key.shape != (2,):
+        raise ValueError(f"a key has shape (2,), got {tuple(key.shape)}")
+    k0, k1 = (int(v) & MASK for v in key.tolist())
+    return k0, k1
+
+
+def PRNGKey(seed: int) -> torch.Tensor:
+    """The raw key of ``jax.random.PRNGKey(seed)``: the seed is taken as a
+    32-bit integer, so the key is (0, seed mod 2^32)."""
+    return torch.tensor([0, int(seed) & MASK], dtype=torch.int64)
+
+
+def key_data(key: torch.Tensor) -> torch.Tensor:
+    """The two uint32 words of a key (raw keys are their own data)."""
+    return key
+
+
+def _hash(k0: int, k1: int, x0: torch.Tensor, x1: torch.Tensor):
+    ks = (k0, k1, k0 ^ k1 ^ _PARITY)
+    x0 = (x0 + ks[0]) & MASK
+    x1 = (x1 + ks[1]) & MASK
+    for block in range(5):
+        for rot in _ROTATIONS[block % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = ((x1 << rot) | (x1 >> (32 - rot))) & MASK
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(block + 1) % 3]) & MASK
+        x1 = (x1 + ks[(block + 2) % 3] + block + 1) & MASK
+    return x0, x1
+
+
+def threefry_2x32(key: torch.Tensor, count: torch.Tensor) -> torch.Tensor:
+    """Threefry-2x32 of ``count`` (int64 tensor of uint32 values, any
+    shape) under ``key``; the result has the shape and device of
+    ``count``."""
+    k0, k1 = _words(key)
+    flat = count.reshape(-1).to(torch.int64)
+    odd = flat.numel() % 2
+    if odd:
+        flat = torch.cat([flat, flat.new_zeros(1)])
+    x0, x1 = flat.chunk(2)
+    out = torch.cat(_hash(k0, k1, x0, x1))
+    if odd:
+        out = out[:-1]
+    return out.reshape(count.shape)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``num`` new keys, shape (num, 2)."""
+    counts = torch.arange(2 * num, dtype=torch.int64, device=key.device)
+    return threefry_2x32(key, counts).reshape(num, 2)
+
+
+def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
+    """A new key from ``key`` and a 32-bit integer."""
+    seed = torch.tensor([0, int(data) & MASK], dtype=torch.int64,
+                        device=key.device)
+    return threefry_2x32(key, seed)
+
+
+def random_bits(key: torch.Tensor, shape: Shape,
+                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """uint32 words (as int64) of the given shape on ``device``."""
+    shape = _shape(shape)
+    size = math.prod(shape)
+    if size >= MASK:
+        raise NotImplementedError(
+            "more than 2^32 - 2 words from one key takes the reference's "
+            "blocked scheme, which is not ported")
+    counts = torch.arange(size, dtype=torch.int64, device=device)
+    return threefry_2x32(key, counts).reshape(shape)
+
+
+def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
+            maxval: float = 1.0,
+            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """float32 uniforms in [minval, maxval), as ``jax.random.uniform``."""
+    bits = random_bits(key, shape, device)
+    mantissa = (bits >> 9) | 0x3F800000
+    floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
+    lo = torch.tensor(minval, dtype=torch.float32, device=device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def _as_int32_range(v, shape, device) -> torch.Tensor:
+    t = torch.as_tensor(v, dtype=torch.int64, device=device)
+    t = t.clamp(-(2 ** 31), 2 ** 31 - 1)
+    return torch.broadcast_to(t, shape)
+
+
+def randint(key: torch.Tensor, shape: Shape, minval, maxval,
+            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """int32 values in [minval, maxval), as ``jax.random.randint`` with
+    ``dtype=int32``; ``minval``/``maxval`` may be arrays that broadcast to
+    ``shape``."""
+    shape = _shape(shape)
+    k1, k2 = split(key)
+    higher = random_bits(k1, shape, device)
+    lower = random_bits(k2, shape, device)
+    lo = _as_int32_range(minval, shape, device)
+    hi = _as_int32_range(maxval, shape, device)
+    span = (hi - lo) & MASK
+    span = torch.where(hi <= lo, torch.ones_like(span), span)
+    multiplier = (2 ** 16) % span
+    multiplier = mul32(multiplier, multiplier) % span
+    offset = mul32(higher % span, multiplier) + (lower % span)
+    offset = (offset & MASK) % span
+    out = (lo + offset + 2 ** 31) & MASK
+    return (out - 2 ** 31).to(torch.int32)

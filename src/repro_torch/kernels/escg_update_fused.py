@@ -1,0 +1,270 @@
+"""Fused-Philox sublattice kernels (port of ``repro.kernels.escg_update_fused``).
+
+Two hand-written CUDA kernels (``csrc/escg_update_fused.cu``) and their
+plain PyTorch versions:
+
+* ``escg_tile_round_fused`` (K1): one round over an already rolled
+  lattice. Tile (i, j) derives its K proposals from Philox-4x32-10 with
+  counter (global tile id * K + j, round, 0, 0) and key = two seed words,
+  and applies them in order to its interior.
+* ``escg_tile_rounds_fused`` (K2, the ``k_mcs`` megakernel): K MCS in one
+  launch. Step t rolls the torus by ``shifts[t]``, sweeps every tile with
+  ``seeds[t]`` at round 0 and banks the species counts in row t. The grid
+  stays in the drifted frame.
+
+``tile_offset``/``grid_tiles_w`` key the counters by global tile identity
+when the grid is one shard of a larger lattice (DESIGN.md §6).
+
+A wrapper launches its kernel for a CUDA tensor and takes the plain
+version only for a CPU tensor. ``LAUNCHES`` counts kernel launches (plain
+calls are not counted), so a run can show that it went through the
+kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional, Tuple
+
+import torch
+
+from ..core import sublattice
+from ..core.rng import ProposalBatch
+from ..core.threefry import MASK, mul32
+from . import build
+from .philox import philox_proposal_fields
+
+LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0}
+
+_CELL_DTYPES = (torch.int8, torch.int16, torch.int32)
+_LIB = "escg_update_fused"
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def check_counter_capacity(n_tiles: int, k_per_tile: int) -> None:
+    """Guard the c0 counter word: ``tile_id * k_per_tile + j`` is computed
+    in uint32, so the global proposal-index space must fit in 2^32 or
+    distant tiles silently alias each other's Philox streams."""
+    if n_tiles * k_per_tile > 2 ** 32:
+        raise ValueError(
+            f"fused-Philox counter overflow: {n_tiles} global tiles x "
+            f"{k_per_tile} proposals/tile = {n_tiles * k_per_tile} counters "
+            f"exceeds the uint32 counter space (2^32); shrink k_per_tile "
+            f"or enlarge the tile")
+
+
+def _geometry(grid: torch.Tensor, tile_shape: Tuple[int, int],
+              k_per_tile: int, grid_tiles_w: Optional[int]):
+    if grid.dim() != 2:
+        raise ValueError(f"grid must be 2-D, got shape {tuple(grid.shape)}")
+    if grid.dtype not in _CELL_DTYPES:
+        raise ValueError(f"grid dtype must be int8/int16/int32, got "
+                         f"{grid.dtype}")
+    h, w = grid.shape
+    th, tw = tile_shape
+    if th < 3 or tw < 3 or h % th or w % tw:
+        raise ValueError(f"tile {tile_shape} must be >= 3x3 and divide "
+                         f"the grid {h}x{w}")
+    if k_per_tile < 1:
+        raise ValueError(f"k_per_tile must be >= 1, got {k_per_tile}")
+    gh, gw = h // th, w // tw
+    if grid_tiles_w is None:
+        # single-lattice call: the local tile grid is the global one;
+        # sharded callers guard the true global tile count themselves
+        check_counter_capacity(gh * gw, k_per_tile)
+        grid_tiles_w = gw
+    return h, w, th, tw, gh, gw, int(grid_tiles_w)
+
+
+def _check_tables(grid: torch.Tensor, dom: torch.Tensor,
+                  dirs: torch.Tensor, neighbourhood: int) -> None:
+    if neighbourhood not in (4, 8):
+        raise ValueError("neighbourhood must be 4 or 8")
+    if dom.dtype != torch.float32 or dom.dim() != 2 \
+            or dom.shape[0] != dom.shape[1]:
+        raise ValueError("dom must be a square float32 matrix")
+    if dirs.dtype != torch.int32 or tuple(dirs.shape) != (8, 2):
+        raise ValueError("dirs must be the (8, 2) int32 direction table")
+    for name, t in (("dom", dom), ("dirs", dirs)):
+        if t.device != grid.device:
+            raise ValueError(f"{name} is on {t.device}, grid on "
+                             f"{grid.device}")
+
+
+def _launch_args(grid: torch.Tensor):
+    if not grid.is_cuda:
+        raise ValueError(f"the kernels run on CUDA tensors; got a tensor "
+                         f"on {grid.device}")
+    stream = torch.cuda.current_stream(grid.device).cuda_stream
+    return grid.device.index or 0, ctypes.c_void_p(stream)
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    if not t.is_contiguous():
+        raise ValueError("the kernels take contiguous tensors")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_LIB)
+    fn = lib.escg_tile_round_fused
+    if fn.argtypes is None:
+        u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, u32, u32,
+                       u32, u32, u32, u32, ptr, i32, ptr, i32,
+                       ctypes.c_float, ctypes.c_float, i32, ptr]
+        fn.restype = i32
+        fn = lib.escg_tile_rounds_fused
+        fn.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, u32,
+                       u32, u32, ptr, ptr, i32, ptr, i32, ptr, i32,
+                       ctypes.c_float, ctypes.c_float, ptr, i32, ptr]
+        fn.restype = i32
+        lib.escg_tile_rounds_fused_blocks.argtypes = [i32, i32, i32]
+        lib.escg_tile_rounds_fused_blocks.restype = i32
+    return lib
+
+
+def cooperative_blocks(grid: torch.Tensor, species: int) -> int:
+    """Blocks the K2 cooperative launch may use on the grid's card."""
+    device, _ = _launch_args(grid)
+    return _lib().escg_tile_rounds_fused_blocks(
+        grid.element_size(), species + 1, device)
+
+
+# ----------------------------- K1: one round ------------------------------ #
+
+def escg_tile_round_fused_plain(grid: torch.Tensor, seed: Tuple[int, int],
+                                round_idx: int, dom: torch.Tensor,
+                                tile_shape: Tuple[int, int], k_per_tile: int,
+                                t_eps: float, t_eps_mu: float,
+                                neighbourhood: int = 4,
+                                tile_offset: Tuple[int, int] = (0, 0),
+                                grid_tiles_w: Optional[int] = None
+                                ) -> torch.Tensor:
+    """Plain version of K1 (same function, any device): Philox fields for
+    every (tile, proposal), then the tile sweep of ``core.sublattice``."""
+    h, w, th, tw, gh, gw, gtw = _geometry(grid, tile_shape, k_per_tile,
+                                          grid_tiles_w)
+    dev = grid.device
+    ti = torch.arange(gh, dtype=torch.int64, device=dev)[:, None]
+    tj = torch.arange(gw, dtype=torch.int64, device=dev)[None, :]
+    tile_id = (mul32((int(tile_offset[0]) + ti) & MASK, gtw)
+               + int(tile_offset[1]) + tj) & MASK
+    j = torch.arange(k_per_tile, dtype=torch.int64, device=dev)
+    idx = (mul32(tile_id.reshape(-1, 1), k_per_tile) + j) & MASK
+    props = ProposalBatch(*philox_proposal_fields(
+        idx, round_idx, seed[0], seed[1], (th - 2) * (tw - 2),
+        neighbourhood))
+    tiles = sublattice.tile_update(sublattice.to_tiles(grid, th, tw), props,
+                                   t_eps, t_eps_mu, dom)
+    return sublattice.from_tiles(tiles, h, w)
+
+
+def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
+                          round_idx: int, dom: torch.Tensor,
+                          dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                          k_per_tile: int, t_eps: float, t_eps_mu: float,
+                          neighbourhood: int = 4,
+                          tile_offset: Tuple[int, int] = (0, 0),
+                          grid_tiles_w: Optional[int] = None
+                          ) -> torch.Tensor:
+    """One fused round over an already-shifted (H, W) grid; returns a new
+    grid. ``seed``: two uint32 key words; ``round_idx``: the uint32 counter
+    word c1. ``dom``: padded (S+1, S+1) float32 dominance matrix and
+    ``dirs`` the (8, 2) int32 direction table, both on the grid's device.
+    """
+    h, w, th, tw, gh, gw, gtw = _geometry(grid, tile_shape, k_per_tile,
+                                          grid_tiles_w)
+    _check_tables(grid, dom, dirs, neighbourhood)
+    if grid.device.type == "cpu":
+        return escg_tile_round_fused_plain(
+            grid, seed, round_idx, dom, tile_shape, k_per_tile, t_eps,
+            t_eps_mu, neighbourhood, tile_offset, grid_tiles_w)
+    device, stream = _launch_args(grid)
+    out = torch.empty_like(grid)
+    lib = _lib()
+    err = lib.escg_tile_round_fused(
+        grid.element_size(), _ptr(out), _ptr(grid), h, w, th, tw,
+        int(k_per_tile), gtw & MASK, int(tile_offset[0]) & MASK,
+        int(tile_offset[1]) & MASK, int(seed[0]) & MASK,
+        int(seed[1]) & MASK, int(round_idx) & MASK, _ptr(dom),
+        dom.shape[0], _ptr(dirs), int(neighbourhood), float(t_eps),
+        float(t_eps_mu), device, stream)
+    build.check(lib, err, "escg_tile_round_fused launch")
+    LAUNCHES["escg_tile_round_fused"] += 1
+    return out
+
+
+# ------------------------ K2: K rounds per launch ------------------------- #
+
+def escg_tile_rounds_fused_plain(grid: torch.Tensor, seeds: torch.Tensor,
+                                 shifts: torch.Tensor, dom: torch.Tensor,
+                                 tile_shape: Tuple[int, int],
+                                 k_per_tile: int, t_eps: float,
+                                 t_eps_mu: float, species: int,
+                                 neighbourhood: int = 4,
+                                 tile_offset: Tuple[int, int] = (0, 0),
+                                 grid_tiles_w: Optional[int] = None):
+    """Plain version of K2: K times (roll, plain K1 at round 0, count)."""
+    counts = []
+    for (s0, s1), (dy, dx) in zip(seeds.tolist(), shifts.tolist()):
+        grid = torch.roll(grid, (-dy, -dx), (0, 1))
+        grid = escg_tile_round_fused_plain(
+            grid, (s0, s1), 0, dom, tile_shape, k_per_tile, t_eps, t_eps_mu,
+            neighbourhood, tile_offset, grid_tiles_w)
+        counts.append(torch.bincount(grid.reshape(-1).long(),
+                                     minlength=species + 1)[:species + 1])
+    if not counts:
+        return grid, torch.zeros((0, species + 1), dtype=torch.int32,
+                                 device=grid.device)
+    return grid, torch.stack(counts).to(torch.int32)
+
+
+def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
+                           shifts: torch.Tensor, dom: torch.Tensor,
+                           dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                           k_per_tile: int, t_eps: float, t_eps_mu: float,
+                           species: int, neighbourhood: int = 4,
+                           tile_offset: Tuple[int, int] = (0, 0),
+                           grid_tiles_w: Optional[int] = None):
+    """K fused MCS in one launch. ``seeds``/``shifts``: (K, 2) int64
+    tensors on the grid's device, the per-MCS key words and torus shifts
+    of ``engines.multi_round_inputs``. Returns ``(grid, counts)`` with
+    counts (K, species + 1) int32, ``counts[t]`` the species counts after
+    step t."""
+    h, w, th, tw, gh, gw, gtw = _geometry(grid, tile_shape, k_per_tile,
+                                          grid_tiles_w)
+    _check_tables(grid, dom, dirs, neighbourhood)
+    if dom.shape[0] != species + 1:
+        raise ValueError(f"dom is {tuple(dom.shape)} for {species} species")
+    n_steps = seeds.shape[0] if seeds.dim() == 2 else -1
+    for name, t in (("seeds", seeds), ("shifts", shifts)):
+        if t.dtype != torch.int64 or tuple(t.shape) != (n_steps, 2) \
+                or t.device != grid.device:
+            raise ValueError(f"{name} must be (K, 2) int64 on "
+                             f"{grid.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    if grid.device.type == "cpu":
+        return escg_tile_rounds_fused_plain(
+            grid, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
+            t_eps_mu, species, neighbourhood, tile_offset, grid_tiles_w)
+    device, stream = _launch_args(grid)
+    out = torch.empty_like(grid)
+    scratch = torch.empty_like(grid)
+    counts = torch.empty((n_steps, species + 1), dtype=torch.int32,
+                         device=grid.device)
+    if n_steps == 0:
+        return grid.clone(), counts
+    lib = _lib()
+    err = lib.escg_tile_rounds_fused(
+        grid.element_size(), _ptr(out), _ptr(scratch), _ptr(grid), h, w,
+        th, tw, int(k_per_tile), gtw & MASK, int(tile_offset[0]) & MASK,
+        int(tile_offset[1]) & MASK, _ptr(seeds), _ptr(shifts), n_steps,
+        _ptr(dom), dom.shape[0], _ptr(dirs), int(neighbourhood),
+        float(t_eps), float(t_eps_mu), _ptr(counts), device, stream)
+    build.check(lib, err, "escg_tile_rounds_fused cooperative launch")
+    LAUNCHES["escg_tile_rounds_fused"] += 1
+    return out, counts

@@ -1,0 +1,252 @@
+"""The port's kernel modules against the reference's plain oracles.
+
+On the CPU every wrapper takes its plain PyTorch version, which is held
+here to the JAX package's oracles (``kernels/ref.py``, ``core/rules.py``,
+``core/sublattice.py``) bit for bit. ``test_torch_cuda.py`` holds the
+CUDA kernels to those plain versions on the card.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import lattice as jlattice
+from repro.core import metrics as jmetrics
+from repro.core import rules as jrules
+from repro.kernels import ref
+from repro_torch.core import dominance, lattice, rules, threefry
+from repro_torch.kernels import escg_update_fused as fused
+from repro_torch.kernels import ops, philox
+
+KNOWN_ANSWER = {
+    # Random123 published KATs for philox4x32-10
+    ((0, 0, 0, 0), (0, 0)): (0x6627E8D5, 0xE169C58D, 0xBC57AC4C,
+                             0x9B00DBD8),
+    ((0xFFFFFFFF,) * 4, (0xFFFFFFFF,) * 2): (0x408F276D, 0x41C83B0E,
+                                             0xA20BC7C6, 0x6D5451FD),
+    ((0x243F6A88, 0x85A308D3, 0x13198A2E, 0x03707344),
+     (0xA4093822, 0x299F31D0)): (0xD16CFE09, 0x94FDCCEB, 0x5001E420,
+                                 0x24126EA1),
+}
+
+
+def _dom(species):
+    return dominance.circulant(species, (1, 2) if species >= 5 else (1,))
+
+
+# ------------------------------- philox ---------------------------------- #
+
+@pytest.mark.parametrize("case", sorted(KNOWN_ANSWER))
+def test_philox_known_answer(case):
+    ctr, key = case
+    words = philox.philox_rounds(*(torch.tensor([c]) for c in ctr), *key)
+    assert tuple(int(w[0]) for w in words) == KNOWN_ANSWER[case]
+
+
+@pytest.mark.parametrize("key", [(0, 0), (0xDEADBEEF, 0x12345678)])
+def test_philox_matches_host_oracle(key):
+    rng = np.random.RandomState(3)
+    ctr = rng.randint(0, 2 ** 32, size=(4, 257), dtype=np.uint64)
+    want = ref.philox4x32_ref(*ctr.astype(np.uint32), *key)
+    got = philox.philox_rounds(*(torch.from_numpy(c.astype(np.int64))
+                                 for c in ctr), *key)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.astype(np.int64))
+
+
+@pytest.mark.parametrize("interior,nbhd", [(84, 4), (180, 8), (1, 4)])
+def test_proposal_fields_match_oracle(interior, nbhd):
+    seed, rnd = (0xABCD1234, 0x5678DEAD), 7
+    want = ref.fused_proposals_ref(6, 41, interior, nbhd, seed, rnd)
+    got = philox.philox_proposal_fields(torch.arange(6 * 41), rnd, *seed,
+                                        interior, nbhd)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.from_numpy(w).dtype
+        np.testing.assert_array_equal(g.reshape(6, 41).numpy(), w)
+
+
+# ------------------------------ pair rule -------------------------------- #
+
+@pytest.mark.parametrize("dtype", ["int8", "int32"])
+@pytest.mark.parametrize("species", [3, 5])
+def test_apply_pair_all_pairs_and_threshold_edges(dtype, species):
+    """Every (s, n) pair against draws on and beside the float32-rounded
+    thresholds and the dominance rates."""
+    t_eps, t_eps_mu = 0.1, 0.7              # not exact in float32
+    dom = _dom(species)
+    dom[1:, 1:] *= 0.6                      # rates below 1: p1 + p2 edges
+    edges = [np.float32(t_eps), np.float32(t_eps_mu), np.float32(0.6),
+             np.float32(1.2), 0.0]
+    u = sorted({float(np.nextafter(np.float32(e), np.float32(d)))
+                for e in edges for d in (-1, 2)} | {float(np.float32(e))
+                                                   for e in edges})
+    u = np.asarray([x for x in u if 0.0 <= x < 1.0], np.float32)
+    s, n, ua, ud = np.meshgrid(np.arange(species + 1), np.arange(species + 1),
+                               u, u, indexing="ij")
+    s, n = s.astype(dtype).ravel(), n.astype(dtype).ravel()
+    ua, ud = ua.ravel(), ud.ravel()
+    want = jrules.apply_pair(jnp.asarray(s), jnp.asarray(n), jnp.asarray(ua),
+                             jnp.asarray(ud), t_eps, t_eps_mu,
+                             jnp.asarray(dom))
+    got = rules.apply_pair(torch.from_numpy(s), torch.from_numpy(n),
+                           torch.from_numpy(ua), torch.from_numpy(ud),
+                           t_eps, t_eps_mu, torch.from_numpy(dom))
+    for g, w in zip(got, want):
+        assert str(g.dtype) == f"torch.{dtype}"
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+
+
+# ------------------------- K1: plain version ----------------------------- #
+
+def _grid(h, w, species, dtype="int32", seed=1):
+    g = lattice.init_grid(threefry.PRNGKey(seed), h, w, species, 0.1,
+                          dtype=getattr(torch, dtype), device="cpu")
+    return g
+
+
+def _oracle_round(grid, seed, rnd, dom, tile, k, te, tem, nbhd,
+                  tile_offset=(0, 0), grid_tiles_w=None):
+    """Host Philox for the given global tile ids feeding the reference's
+    tile oracle."""
+    h, w = grid.shape
+    th, tw = tile
+    gh, gw = h // th, w // tw
+    gtw = gw if grid_tiles_w is None else grid_tiles_w
+    ti, tj = np.meshgrid(np.arange(gh), np.arange(gw), indexing="ij")
+    tile_id = ((tile_offset[0] + ti) * gtw + tile_offset[1] + tj).ravel()
+    idx = (tile_id[:, None] * k + np.arange(k)[None, :]).astype(np.uint32)
+    x = ref.philox4x32_ref(idx.ravel(), np.full(idx.size, rnd, np.uint32),
+                           np.zeros(idx.size, np.uint32),
+                           np.zeros(idx.size, np.uint32), *seed)
+    interior = (th - 2) * (tw - 2)
+    cell = (x[0] % np.uint32(interior)).astype(np.int32).reshape(-1, k)
+    dirn = (x[1] % np.uint32(nbhd)).astype(np.int32).reshape(-1, k)
+    ua = ((x[2] >> 8).astype(np.float32) * 2.0 ** -24).reshape(-1, k)
+    ud = ((x[3] >> 8).astype(np.float32) * 2.0 ** -24).reshape(-1, k)
+    return np.asarray(ref.escg_tile_round_ref(
+        jnp.asarray(grid.numpy()), jnp.asarray(cell), jnp.asarray(dirn),
+        jnp.asarray(ua), jnp.asarray(ud), jnp.asarray(dom), tile, te, tem))
+
+
+@pytest.mark.parametrize("hw,tile,species,nbhd,dtype", [
+    ((32, 64), (8, 16), 5, 4, "int32"),
+    ((16, 16), (8, 8), 3, 8, "int8"),
+    ((24, 48), (8, 16), 8, 4, "int16"),
+])
+def test_plain_round_matches_oracle(hw, tile, species, nbhd, dtype):
+    """The plain K1 equals ``ref.fused_proposals_ref`` fed into
+    ``ref.escg_tile_round_ref``."""
+    grid = _grid(*hw, species, dtype)
+    dom = _dom(species)
+    nt = (hw[0] // tile[0]) * (hw[1] // tile[1])
+    seed, k = (0xABCD1234, 0x5678DEAD), 61
+    got = fused.escg_tile_round_fused_plain(
+        grid, seed, 7, torch.from_numpy(dom), tile, k, 0.25, 0.6, nbhd)
+    cell, dirn, ua, ud = ref.fused_proposals_ref(
+        nt, k, (tile[0] - 2) * (tile[1] - 2), nbhd, seed, 7)
+    want = ref.escg_tile_round_ref(
+        jnp.asarray(grid.numpy()), jnp.asarray(cell), jnp.asarray(dirn),
+        jnp.asarray(ua), jnp.asarray(ud), jnp.asarray(dom), tile, 0.25, 0.6)
+    assert got.dtype == grid.dtype
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert not torch.equal(got, grid)
+
+
+@pytest.mark.parametrize("nbhd", [4, 8])
+def test_plain_round_tile_offset_matches_oracle(nbhd):
+    """A shard keys its counters by global tile id."""
+    grid = _grid(16, 32, 3)
+    dom = _dom(3)
+    got = fused.escg_tile_round_fused_plain(
+        grid, (5, 6), 2, torch.from_numpy(dom), (8, 16), 40, 0.3, 0.65,
+        nbhd, tile_offset=(3, 7), grid_tiles_w=111)
+    want = _oracle_round(grid, (5, 6), 2, dom, (8, 16), 40, 0.3, 0.65, nbhd,
+                         (3, 7), 111)
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
+    grid = _grid(16, 32, 3)
+    dom = torch.from_numpy(_dom(3))
+    dirs = torch.as_tensor(lattice.DIRS)
+    fused.reset_launches()
+    got = ops.escg_round_fused(grid, (1, 2), 0, (3, 5), dom, dirs, (8, 16),
+                               30, 0.25, 0.6, roll_back=False)
+    want = fused.escg_tile_round_fused_plain(
+        torch.roll(grid, (-3, -5), (0, 1)), (1, 2), 0, dom, (8, 16), 30,
+        0.25, 0.6)
+    assert torch.equal(got, want)
+    back = ops.escg_round_fused(grid, (1, 2), 0, (3, 5), dom, dirs, (8, 16),
+                                30, 0.25, 0.6)
+    assert torch.equal(back, torch.roll(want, (3, 5), (0, 1)))
+    assert fused.LAUNCHES == {"escg_tile_round_fused": 0,
+                              "escg_tile_rounds_fused": 0}
+
+
+def test_wrapper_rejects_bad_input():
+    grid = _grid(16, 32, 3)
+    dom = torch.from_numpy(_dom(3))
+    dirs = torch.as_tensor(lattice.DIRS)
+    args = ((1, 2), 0, dom, dirs)
+    with pytest.raises(ValueError, match="divide"):
+        fused.escg_tile_round_fused(grid, *args, (8, 12), 8, 0.2, 0.5)
+    with pytest.raises(ValueError, match="dtype"):
+        fused.escg_tile_round_fused(grid.long(), *args, (8, 16), 8, 0.2,
+                                    0.5)
+    with pytest.raises(ValueError, match="dirs"):
+        fused.escg_tile_round_fused(grid, (1, 2), 0, dom, dirs.long(),
+                                    (8, 16), 8, 0.2, 0.5)
+    with pytest.raises(ValueError, match="CUDA"):
+        fused.escg_tile_round_fused(grid.to("meta"), (1, 2), 0,
+                                    dom.to("meta"), dirs.to("meta"),
+                                    (8, 16), 8, 0.2, 0.5)
+
+
+def test_counter_capacity_guard():
+    fused.check_counter_capacity(1 << 16, 1 << 16)          # exactly 2^32
+    with pytest.raises(ValueError, match="counter"):
+        fused.check_counter_capacity((1 << 16) + 1, 1 << 16)
+    grid = torch.zeros((3 * 8, 3 * 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="counter"):
+        fused.escg_tile_round_fused_plain(
+            grid, (0, 0), 0, torch.from_numpy(_dom(3)), (8, 8), 2 ** 29,
+            0.2, 0.5)
+
+
+# ------------------------- K2: plain version ----------------------------- #
+
+@pytest.mark.parametrize("hw,tile,species,nbhd,dtype", [
+    ((16, 32), (8, 16), 5, 4, "int32"),
+    ((16, 16), (8, 8), 3, 8, "int8"),
+])
+def test_plain_megakernel_matches_oracle_rounds(hw, tile, species, nbhd,
+                                                dtype):
+    """K steps of the plain K2 equal K reference oracle rounds in the
+    drifting frame, with the per-step counts of ``metrics.counts``."""
+    grid = _grid(*hw, species, dtype, seed=4)
+    dom = _dom(species)
+    k, k_steps = 37, 4
+    rng = np.random.RandomState(7)
+    seeds = rng.randint(0, 2 ** 32, size=(k_steps, 2), dtype=np.uint64)
+    shifts = np.stack([rng.randint(0, tile[0], k_steps),
+                       rng.randint(0, tile[1], k_steps)], axis=1)
+    got_g, got_c = fused.escg_tile_rounds_fused(
+        grid, torch.from_numpy(seeds.astype(np.int64)),
+        torch.from_numpy(shifts.astype(np.int64)), torch.from_numpy(dom),
+        torch.as_tensor(lattice.DIRS), tile, k, 0.25, 0.6, species, nbhd)
+    assert got_c.shape == (k_steps, species + 1)
+    assert got_c.dtype == torch.int32
+    nt = (hw[0] // tile[0]) * (hw[1] // tile[1])
+    g = jnp.asarray(grid.numpy())
+    for t in range(k_steps):
+        g = jnp.roll(g, (-int(shifts[t, 0]), -int(shifts[t, 1])), (0, 1))
+        cell, dirn, ua, ud = ref.fused_proposals_ref(
+            nt, k, (tile[0] - 2) * (tile[1] - 2), nbhd, seeds[t], 0)
+        g = ref.escg_tile_round_ref(g, jnp.asarray(cell), jnp.asarray(dirn),
+                                    jnp.asarray(ua), jnp.asarray(ud),
+                                    jnp.asarray(dom), tile, 0.25, 0.6)
+        np.testing.assert_array_equal(
+            got_c[t].numpy(), np.asarray(jmetrics.counts(g, species)),
+            err_msg=f"step {t} counts")
+    np.testing.assert_array_equal(got_g.numpy(), np.asarray(g))
