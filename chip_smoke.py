@@ -3,16 +3,24 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernels from
-``src/repro_torch/kernels/csrc``, holds each against its plain PyTorch
-version on the card, reproduces ``tests/golden/fused_trajectory.json``
-through ``simulate`` on the card, drives the main path (park3 at
-3200 x 3200 on the ``pallas_fused`` engine, ``k_mcs`` 1 and 10) through
-the entry points a user calls, times every kernel, and prints one JSON
-line per kernel table and, last, ``{"ok": true, "device": ...}``. Any
-failure raises and exits non-zero; without a CUDA card, or without the
-repository around it, it exits non-zero before printing a result. It
-imports nothing of JAX.
+Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5)
+from ``src/repro_torch/kernels/csrc``, holds each against its plain
+PyTorch version on the card, reproduces
+``tests/golden/fused_trajectory.json`` through ``simulate`` on the card,
+and drives the port's paths through the entry points a user calls, each
+with the launch counts set to 0 just before it and read just after:
+
+* park3 at 3200 x 3200 on the ``pallas_fused`` engine, ``k_mcs`` 1 and 10
+  (K1, K2, K4), and again with every observable on;
+* park3 at 3200 x 3200 on the stream-fed ``pallas`` engine with its
+  declared observables (K3, K4), held to the plain ``sublattice`` engine;
+* bulk Philox words and uniforms, ``ops.philox_bits``/``philox_uniform``
+  (K5).
+
+It times every kernel and prints one JSON line with the kernel table and,
+last, ``{"ok": true, "device": ...}``. Any failure raises and exits
+non-zero; without a CUDA card, or without the repository around it, it
+exits non-zero before printing a result. It imports nothing of JAX.
 """
 import hashlib
 import json
@@ -37,6 +45,17 @@ OPS_PER_UPDATE = 80
 # K2's roll and count per cell and step: 2 loads, 1 store, 1 shared-memory
 # atomic and 4 index instructions.
 OPS_PER_CELL = 8
+# K3 per elementary update: 4 proposal loads, the cell's row and column 8,
+# neighbour offsets and addresses 6, 2 cell loads, 2 dominance loads and 2
+# stores 6, the rule 12, loop control 2.
+OPS_PER_STREAM_UPDATE = 38
+# K4 per cell: 1 load, the label match and its leader 3, 2 range compares.
+OPS_PER_COUNTED_CELL = 6
+# K5 per counter: 10 rounds of 2 wide multiplies, 2 three-input xors and 2
+# key additions = 60, the counter and the store 2.
+OPS_PER_COUNTER = 62
+K5_WORDS = 1 << 26
+ALL_OBS = ("densities", "interface_length", "cluster_size", "snapshot")
 
 
 def check(cond, what):
@@ -75,6 +94,11 @@ def max_err(torch, a, b):
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
 
+def words(torch, t):
+    """uint32 words as int64 (PyTorch computes little on uint32)."""
+    return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -83,11 +107,12 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
-    from repro_torch.core import engines, lattice, threefry
+    from repro_torch.core import engines, lattice, rng, threefry
+    from repro_torch.core import observables as obs
     from repro_torch.core.scenarios import (EngineConfig, RunConfig,
                                             compose, make_scenario)
     from repro_torch.core.simulation import simulate
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, density, escg_update, ops, philox
     from repro_torch.kernels import escg_update_fused as fused
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
@@ -99,10 +124,12 @@ def main():
     # ---- 2. build ----
     t0 = time.perf_counter()
     build.build()
-    print(f"[build] nvcc {time.perf_counter() - t0:.2f}s")
-    for line in build.build_log("escg_update_fused").splitlines():
-        if "registers" in line or "spill" in line:
-            print("[build]", line.strip())
+    print(f"[build] nvcc {time.perf_counter() - t0:.2f}s, libraries "
+          f"{build.LIBRARIES}")
+    for lib in build.LIBRARIES:
+        for line in build.build_log(lib).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"[build] {lib}:", line.strip())
 
     # the main path's configuration and kernel inputs
     park3 = make_scenario("park3")
@@ -189,7 +216,7 @@ def main():
     results, launches = {}, {}
     for k_mcs in (1, K_MCS):
         stamps = []
-        fused.reset_launches()
+        ops.reset_launches()
         t0 = time.perf_counter()
         r = simulate(park3,
                      engine=EngineConfig(engine="pallas_fused", tile=TILE,
@@ -198,7 +225,7 @@ def main():
                      hooks=[lambda m, g, c: stamps.append(
                          time.perf_counter())])
         wall = time.perf_counter() - t0
-        launches[k_mcs] = dict(fused.LAUNCHES)
+        launches[k_mcs] = ops.launches()
         results[k_mcs] = r
         dens = r.densities
         check(r.grid.shape == (SIDE, SIDE) and r.grid.dtype == np.int32,
@@ -213,8 +240,9 @@ def main():
               f"{per_mcs:.4f} ms/MCS; launches {launches[k_mcs]}; final "
               f"densities {dens[-1].tolist()}")
     check(launches[1]["escg_tile_round_fused"] == MCS
-          and launches[1]["escg_tile_rounds_fused"] == 0,
-          f"k_mcs=1 did not run through K1: {launches[1]}")
+          and launches[1]["escg_tile_rounds_fused"] == 0
+          and launches[1]["density_counts"] == MCS + 1,
+          f"k_mcs=1 did not run through K1 and K4: {launches[1]}")
     check(launches[K_MCS]["escg_tile_rounds_fused"] == MCS // K_MCS
           and launches[K_MCS]["escg_tile_round_fused"] == 0,
           f"k_mcs={K_MCS} did not run through K2: {launches[K_MCS]}")
@@ -258,7 +286,217 @@ def main():
               f"{instr_per_s / 1e12:.2f} T/s at {clock_hz / 1e9:.2f} GHz); "
               f"library call: none computes a sequential tile sweep")
 
-    # ---- 8. the kernel table ----
+    # ---- 8. [threefry] the stream-fed engines' draws, card against host --
+    interior = (th - 2) * (tw - 2)
+    tile_ids = torch.arange(n_tiles, device=dev)
+    kp = threefry.split(threefry.PRNGKey(5))[0]
+    on_card = rng.tile_stream_batch(kp.to(dev), tile_ids, k, interior, 4)
+    on_host = rng.tile_stream_batch(kp, tile_ids.cpu(), k, interior, 4)
+    for name, a, b in zip(on_card._fields, on_card, on_host):
+        check(a.is_cuda and torch.equal(a.cpu(), b),
+              f"tile_stream_batch field {name} differs card/host")
+    stream_ms = event_ms(torch, lambda: rng.tile_stream_batch(
+        kp.to(dev), tile_ids, k, interior, 4), 5)
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+    rng.tile_stream_batch(kp.to(dev), tile_ids, k, interior, 4)
+    peak_gb = (torch.cuda.max_memory_allocated() - base_mem) / 1e9
+    print(f"[threefry] tile_stream_batch {n_tiles} tiles x {k}: card equals "
+          f"host in all 4 fields of all tiles; {stream_ms:.3f} ms per MCS "
+          f"on the card, peak {peak_gb:.2f} GB above the resident tensors")
+
+    # ---- 9. [K3] the stream-fed round against its plain version ----
+    k3_err = 0.0
+    for seed in (1, 2, 3):
+        props = rng.tile_stream_batch(threefry.PRNGKey(seed).to(dev),
+                                      tile_ids, k, interior, 4)
+        a = escg_update.escg_tile_round(g_main, *props, dom, dirs, TILE, te,
+                                        tem)
+        b = escg_update.escg_tile_round_plain(g_main, *props, dom, TILE, te,
+                                              tem)
+        torch.cuda.synchronize()
+        err = max_err(torch, a, b)
+        k3_err = max(k3_err, err)
+        print(f"[K3] {SIDE}x{SIDE} int32 nbhd 4 stream key {seed}: "
+              f"max_abs_err {err}, cells changed {int((a != g_main).sum())}")
+    n8 = (512 // th) * (512 // tw)
+    props8 = rng.tile_stream_batch(threefry.PRNGKey(4).to(dev),
+                                   torch.arange(n8, device=dev), k8,
+                                   interior, 8)
+    a = escg_update.escg_tile_round(g8, *props8, dom5, dirs, TILE, 0.25,
+                                    0.6)
+    b = escg_update.escg_tile_round_plain(g8, *props8, dom5, TILE, 0.25,
+                                          0.6)
+    torch.cuda.synchronize()
+    err = max_err(torch, a, b)
+    k3_err = max(k3_err, err)
+    print(f"[K3] {g8.shape[0]}x{g8.shape[1]} int8 nbhd 8: max_abs_err "
+          f"{err}")
+    check(k3_err == 0.0, f"K3 disagrees with its plain version ({k3_err})")
+
+    # ---- 10. [pallas] the stream-fed engine, held to the plain sweep ----
+    def park3_run(engine, mcs, chunk, observables=None, hooks=(), k_mcs=1):
+        return simulate(park3,
+                        engine=EngineConfig(engine=engine, tile=TILE,
+                                            k_mcs=k_mcs),
+                        run=RunConfig(length=SIDE, height=SIDE, mcs=mcs,
+                                      chunk_mcs=chunk,
+                                      observables=observables),
+                        hooks=hooks)
+    few = {e: park3_run(e, 5, 5) for e in ("pallas", "sublattice")}
+    check(set(few["pallas"].observables) == {"densities",
+                                             "interface_length"},
+          f"park3 streamed {sorted(few['pallas'].observables)}")
+    check(np.array_equal(few["pallas"].grid, few["sublattice"].grid),
+          "pallas differs from sublattice in the final lattice")
+    for name, stream in few["pallas"].observables.items():
+        check(np.array_equal(stream, few["sublattice"].observables[name]),
+              f"pallas differs from sublattice in {name}")
+    print(f"[pallas] park3 {SIDE}x{SIDE} 5 MCS: pallas equals sublattice "
+          "(the plain sweep on the card) in the final lattice and every "
+          "densities and interface_length row")
+    stamps = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r = park3_run("pallas", MCS, CHUNK,
+                  hooks=[lambda m, g, c: stamps.append(time.perf_counter())])
+    wall = time.perf_counter() - t0
+    launches["pallas"] = ops.launches()
+    check(launches["pallas"]["escg_tile_round"] == MCS
+          and launches["pallas"]["density_counts"] == MCS + 1,
+          f"the pallas path did not run through K3 and K4: "
+          f"{launches['pallas']}")
+    iface = r.observables["interface_length"]
+    check(r.grid.shape == (SIDE, SIDE) and r.densities.shape == (MCS + 1, 4)
+          and iface.shape == (MCS, 1) and np.isfinite(iface).all()
+          and 0.0 < iface[-1, 0] < 1.0
+          and np.abs(r.densities.sum(axis=1) - 1.0).max() < 1e-12,
+          "the pallas path's streams are malformed")
+    pallas_ms = (stamps[1] - stamps[0]) / CHUNK * 1e3
+    print(f"[pallas] park3 {SIDE}x{SIDE} pallas {MCS} MCS with park3's "
+          f"observables: {wall:.3f}s incl. set-up; second chunk "
+          f"{pallas_ms:.4f} ms/MCS; launches {launches['pallas']}; final "
+          f"interface_length {float(iface[-1, 0])!r}; final densities "
+          f"{r.densities[-1].tolist()}")
+
+    # ---- 11. [obs] pallas_fused with every observable on ----
+    obs_runs = {}
+    for k_mcs in (1, K_MCS):
+        res = park3_run("pallas_fused", MCS, CHUNK, ALL_OBS, k_mcs=k_mcs)
+        obs_runs[k_mcs] = res
+        check(np.array_equal(res.grid, results[k_mcs].grid)
+              and np.array_equal(res.densities, results[k_mcs].densities),
+              f"k_mcs={k_mcs}: observables on differ from off")
+    one, ten = obs_runs[1], obs_runs[K_MCS]
+    p_obs = compose(park3, EngineConfig(engine="pallas_fused", tile=TILE),
+                    RunConfig(length=SIDE, height=SIDE,
+                              observables=ALL_OBS))
+    _, k0 = threefry.split(threefry.PRNGKey(0))    # seed 0's lattice
+    g0 = lattice.init_grid(k0, SIDE, SIDE, 3, p.empty, device=dev)
+    for spec in obs.observable_specs():
+        name = spec.name
+        if spec.from_counts:
+            check(np.array_equal(ten.observables[name],
+                                 one.observables[name]),
+                  f"k_mcs={K_MCS} {name} differs from k_mcs=1")
+            continue
+        first = spec.post(spec.compute(g0, None, p_obs).double()
+                          .cpu().numpy()[None], p_obs)[0]
+        starts = [first] + [one.observables[name][K_MCS * g - 1]
+                            for g in range(1, MCS // K_MCS)]
+        held = np.stack([starts[t // K_MCS] for t in range(MCS)])
+        check(np.array_equal(ten.observables[name], held),
+              f"k_mcs={K_MCS} {name} is not lag-held")
+    print(f"[obs] pallas_fused park3 {SIDE}x{SIDE} {MCS} MCS, observables "
+          f"{ALL_OBS}: on equals off (lattice, densities) at k_mcs 1 and "
+          f"{K_MCS}; at k_mcs={K_MCS} densities equal k_mcs=1 row for row "
+          f"and the grid-derived streams are lag-held at group starts")
+
+    # ---- 12. [K4] the species histogram ----
+    k4_err = 0.0
+    g_over = torch.randint(0, 8, (SIDE, SIDE), device=dev,
+                           generator=torch.Generator(dev).manual_seed(1),
+                           dtype=torch.int32)
+    for label, grid in (("park3 lattice", g_main), ("labels 0..7", g_over)):
+        for dtype in (torch.int32, torch.int8):
+            g = grid.to(dtype)
+            for species in (3, 5):
+                a = density.density_counts(g, species)
+                b = density.density_counts_plain(g, species)
+                lib = torch.bincount(g.reshape(-1).long(),
+                                     minlength=species + 1)[:species + 1]
+                torch.cuda.synchronize()
+                err = max(max_err(torch, a, b), max_err(torch, a, lib))
+                k4_err = max(k4_err, err)
+                print(f"[K4] {SIDE}x{SIDE} {label} {dtype} S={species}: "
+                      f"max_abs_err {err} against plain and bincount")
+    check(k4_err == 0.0, f"K4 disagrees ({k4_err})")
+
+    # ---- 13. [K5] bulk Philox words and uniforms ----
+    k5_err = 0.0
+    for n in (K5_WORDS, 4 * 1024 * 37 + 3):
+        a = philox.philox_bits(n, (0xDEADBEEF, 7), 3)
+        b = philox.philox_bits_plain(n, (0xDEADBEEF, 7), 3, device=dev)
+        ua = philox.philox_uniform(n, (0xDEADBEEF, 7), 3)
+        ub = philox.philox_uniform_plain(n, (0xDEADBEEF, 7), 3, device=dev)
+        torch.cuda.synchronize()
+        check(a.dtype == torch.uint32 and a.shape == (n,) and
+              ua.dtype == torch.float32 and ua.shape == (n,),
+              "philox output has the wrong type or shape")
+        err = max(max_err(torch, words(torch, a), words(torch, b)),
+                  float((ua - ub).abs().max()))
+        k5_err = max(k5_err, err)
+        check(float(ua.min()) >= 0.0 and float(ua.max()) < 1.0,
+              "philox_uniform left [0, 1)")
+        print(f"[K5] n={n} stream 3: max_abs_err {err} (words and "
+              f"uniforms); uniforms in [{float(ua.min())!r}, "
+              f"{float(ua.max())!r}], mean {float(ua.double().mean())!r}")
+    check(k5_err == 0.0, f"K5 disagrees with its plain version ({k5_err})")
+    ops.reset_launches()
+    u = ops.philox_uniform(K5_WORDS, (1, 2))
+    bits = ops.philox_bits(K5_WORDS, (1, 2), stream=1)
+    torch.cuda.synchronize()
+    launches["philox"] = ops.launches()
+    check(launches["philox"]["philox_bits"] == 2,
+          f"the Philox path did not run through K5: {launches['philox']}")
+    print(f"[K5] ops.philox_uniform + ops.philox_bits ({K5_WORDS} words "
+          f"each): launches {launches['philox']}, uniform mean "
+          f"{float(u.double().mean())!r}, word mean "
+          f"{float(words(torch, bits).double().mean()) / 2 ** 32!r} of 2^32")
+
+    # ---- 14. [time] K3, K4, K5 ----
+    props = rng.tile_stream_batch(kp.to(dev), tile_ids, k, interior, 4)
+    k3_ms = event_ms(torch, lambda: escg_update.escg_tile_round(
+        g_main, *props, dom, dirs, TILE, te, tem), 50)
+    k3_plain = event_ms(torch, lambda: escg_update.escg_tile_round_plain(
+        g_main, *props, dom, TILE, te, tem), 2)
+    k3_bound, k3_by = bound(2 * cell_bytes + 4 * 4 * updates,
+                            updates * OPS_PER_STREAM_UPDATE)
+    k4_ms = event_ms(torch, lambda: density.density_counts(g_main, 3), 100)
+    k4_plain = event_ms(torch, lambda: density.density_counts_plain(
+        g_main, 3), 10)
+    k4_lib = event_ms(torch, lambda: torch.bincount(
+        g_main.reshape(-1), minlength=4), 100)
+    k4_bound, k4_by = bound(cell_bytes + 4 * 4,
+                            SIDE * SIDE * OPS_PER_COUNTED_CELL)
+    k5_ms = event_ms(torch, lambda: philox.philox_bits(K5_WORDS, (1, 2)),
+                     50)
+    k5_plain = event_ms(torch, lambda: philox.philox_bits_plain(
+        K5_WORDS, (1, 2), device=dev), 3)
+    k5_bound, k5_by = bound(4 * K5_WORDS,
+                            K5_WORDS // 4 * OPS_PER_COUNTER)
+    for name, ms, plain, bnd, by, lib_note in (
+            ("K3", k3_ms, k3_plain, k3_bound, k3_by,
+             "none computes a sequential tile sweep"),
+            ("K4", k4_ms, k4_plain, k4_bound, k4_by,
+             f"torch.bincount {k4_lib:.4f} ms"),
+            ("K5", k5_ms, k5_plain, k5_bound, k5_by,
+             "none (torch's Philox has another counter layout)")):
+        print(f"[time] {name}: {ms:.4f} ms per launch, plain {plain:.2f} "
+              f"ms, bound {bnd * 1e3:.1f} us by {by}; library call: "
+              f"{lib_note}")
+
+    # ---- 15. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,
@@ -271,7 +509,26 @@ def main():
          "launches": launches[K_MCS]["escg_tile_rounds_fused"],
          "max_abs_err": k2_err, "ms": k2_ms, "plain_ms": k2_plain,
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+        {"name": "escg_tile_round", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/escg_update.cu",
+         "replaces": "src/repro/kernels/escg_update.py:90",
+         "launches": launches["pallas"]["escg_tile_round"],
+         "max_abs_err": k3_err, "ms": k3_ms, "plain_ms": k3_plain,
+         "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
+        {"name": "density_counts", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/density.cu",
+         "replaces": "src/repro/kernels/density.py:41",
+         "launches": launches["pallas"]["density_counts"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib},
+        {"name": "philox_bits", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/philox.cu",
+         "replaces": "src/repro/kernels/philox.py:101",
+         "launches": launches["philox"]["philox_bits"],
+         "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain,
+         "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None},
     ]}))
+    print(card, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

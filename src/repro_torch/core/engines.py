@@ -1,20 +1,26 @@
 """Engine registry (port of ``repro.core.engines``, DESIGN.md §2).
 
-The port registers the fused-Philox sublattice engine ``pallas_fused``;
-every other engine of the reference is named here with the ``ROADMAP.md``
-item that ports it, and asking for one raises ``NotImplementedError``.
+The port registers the sublattice family: the fused-Philox engine
+``pallas_fused`` and the stream-fed pair ``sublattice`` (plain PyTorch)
+and ``pallas`` (CUDA kernel K3). Every other engine of the reference is
+named here with the ``ROADMAP.md`` item that ports it, and asking for one
+raises ``NotImplementedError``.
 
 Engine contract in the port: ``build(params, dom, device) -> BuiltEngine``.
 The per-MCS key chain does not depend on the lattice, so it runs on the
-host, once per chunk (``schedule``), and the launches then take its seed
-words and shifts:
+host, once per chunk (``schedule``), and the launches then take the two
+words and the shift it gives each MCS:
 
 * ``schedule(key, n) -> (key', seeds (n, 2), shifts (n, 2))`` on the host:
-  the MCS loop's ``key, k1 = split(key)`` chain with ``fused_round_inputs``
-  of every ``k1``, exactly as ``multi_round_inputs`` replays it;
-* ``one_mcs(grid, seed, shift) -> grid``: one MCS, one K1 launch;
+  the MCS loop's ``key, k1 = split(key)`` chain with the engine's round
+  inputs of every ``k1``. For ``pallas_fused`` the two words are the
+  Philox seed (``fused_round_inputs``); for ``sublattice`` and ``pallas``
+  they are the key data of the proposal key ``kp`` of ``kp, ks =
+  split(k1)``, and the shift is drawn from ``ks`` (``tiled_round_inputs``);
+* ``one_mcs(grid, seed, shift) -> grid``: one MCS;
 * ``multi_mcs(grid, seeds, shifts) -> (grid, counts)``: K MCS in one K2
-  launch, ``seeds``/``shifts`` (K, 2) on the grid's device.
+  launch, ``seeds``/``shifts`` (K, 2) on the grid's device (``pallas_fused``
+  only; ``None`` elsewhere).
 """
 from __future__ import annotations
 
@@ -25,11 +31,11 @@ from typing import (Callable, Dict, NamedTuple, Optional, Tuple,
 
 import torch
 
-from . import threefry
+from . import sublattice, threefry
 from .device import DeviceLike, resolve_device
 from .lattice import DIRS
-from .results import STREAM_NAMES
-from .rng import round_shift
+from .observables import observable_names
+from .rng import round_shift, tile_stream_batch
 
 if TYPE_CHECKING:  # params validates through this module
     from .params import EscgParams
@@ -41,10 +47,10 @@ class BuiltEngine(NamedTuple):
                        Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
     one_mcs: Callable[[torch.Tensor, Tuple[int, int], Tuple[int, int]],
                       torch.Tensor]
-    multi_mcs: Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
-                        Tuple[torch.Tensor, torch.Tensor]]
     attempts_per_mcs: int
     device: torch.device
+    multi_mcs: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
+                                 Tuple[torch.Tensor, torch.Tensor]]] = None
 
 
 @dataclass(frozen=True)
@@ -53,6 +59,8 @@ class EngineCaps:
     flux_only: bool = False    # requires periodic (torus) boundaries
     tiled: bool = False        # consumes params.tile; tile must divide grid
     multi_mcs: bool = False    # supports params.k_mcs > 1 (the megakernel)
+    equiv_oracle: Optional[str] = None  # engine this one is bit-identical
+                               # to (same key -> same trajectory)
 
 
 @dataclass(frozen=True)
@@ -69,8 +77,6 @@ _REGISTRY: Dict[str, EngineSpec] = {}
 NOT_PORTED = {
     "reference": "Queue 1, 'reference and batched engines'",
     "batched": "Queue 1, 'reference and batched engines'",
-    "sublattice": "Queue 1, 'stream-fed sublattice engine'",
-    "pallas": "Queue 1, 'stream-fed sublattice engine' (with Queue 2, K3)",
     "sharded": "Queue 1, 'multi-GPU engines'",
     "sharded_pod": "Queue 1, 'multi-GPU engines'",
 }
@@ -121,9 +127,9 @@ def validate_params(p: "EscgParams") -> None:
     if p.obs_capacity < 0:
         raise ValueError(f"obs_capacity must be >= 0, got {p.obs_capacity}")
     for name in p.observables:
-        if name not in STREAM_NAMES:
+        if name not in observable_names():
             raise ValueError(f"unknown observable {name!r}; known: "
-                             f"{STREAM_NAMES}")
+                             f"{observable_names()}")
     if p.mesh_shape is not None:
         raise ValueError(f"engine {p.engine!r} does not lay devices on a "
                          "('pod','rows','cols') mesh; mesh_shape does not "
@@ -165,18 +171,34 @@ def fused_round_inputs(key: torch.Tensor, th: int, tw: int):
     return seed, shift
 
 
+def _round_schedule(key: torch.Tensor, n_mcs: int, round_inputs):
+    """Replay the MCS loop's key chain ``key, k1 = split(key)`` ``n_mcs``
+    times with ``round_inputs(k1) -> (words (2,), shift (2,))``; returns
+    ``(key', words (n, 2), shifts (n, 2))``, int64 on the host."""
+    words = torch.zeros((n_mcs, 2), dtype=torch.int64)
+    shifts = torch.zeros((n_mcs, 2), dtype=torch.int64)
+    for t in range(n_mcs):
+        key, k1 = threefry.split(key)
+        words[t], shifts[t] = round_inputs(k1)
+    return key, words, shifts
+
+
 def multi_round_inputs(key: torch.Tensor, th: int, tw: int, k_steps: int):
     """The K-step fused schedule ``(key', seeds (K, 2), shifts (K, 2))``,
     int64 on the host. Replays the MCS loop's per-MCS key chain — ``key, k1
     = split(key); fused_round_inputs(k1)`` K times — so K steps from it
     equal K single-MCS calls, and ``key'`` is the loop's key after K
     MCS."""
-    seeds = torch.zeros((k_steps, 2), dtype=torch.int64)
-    shifts = torch.zeros((k_steps, 2), dtype=torch.int64)
-    for t in range(k_steps):
-        key, k1 = threefry.split(key)
-        seeds[t], shifts[t] = fused_round_inputs(k1, th, tw)
-    return key, seeds, shifts
+    return _round_schedule(key, k_steps,
+                           lambda k1: fused_round_inputs(k1, th, tw))
+
+
+def tiled_round_inputs(key: torch.Tensor, th: int, tw: int):
+    """Per-MCS (proposal key data, window shift) of the stream-fed engines:
+    ``kp, ks = split(key)``, the tiles' streams keyed by ``kp`` and the
+    shift drawn from ``ks``, as the reference's ``_build_tiled``."""
+    kp, ks = threefry.split(key)
+    return threefry.key_data(kp), round_shift(ks, th, tw)
 
 
 @register("pallas_fused", EngineCaps(flux_only=True, tiled=True,
@@ -204,5 +226,64 @@ def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
             grid, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
             t_eps_mu, p.species, p.neighbourhood)
 
-    return BuiltEngine(schedule, one_mcs, multi_mcs,
+    return BuiltEngine(schedule, one_mcs,
+                       attempts_per_mcs=n_tiles * k_per_tile, device=device,
+                       multi_mcs=multi_mcs)
+
+
+def _build_tiled(p: "EscgParams", device: torch.device,
+                 run_round: Callable) -> BuiltEngine:
+    """Shared build function of the stream-fed engines (plain and kernel).
+
+    Proposals come from per-tile counter-based streams
+    (``rng.tile_stream_batch``) drawn on the lattice's device, so the
+    trajectory is a function of (key, tile id) only. The frame is never
+    rolled back: densities and the other observables of a torus are
+    translation-invariant, and the reference lets its frame drift the same
+    way."""
+    th, tw, n_tiles, k_per_tile, interior = _tiled_setup(p)
+    tile_ids = torch.arange(n_tiles, dtype=torch.int64, device=device)
+
+    def schedule(key, n_mcs):
+        return _round_schedule(key, n_mcs,
+                               lambda k1: tiled_round_inputs(k1, th, tw))
+
+    def one_mcs(grid, seed, shift):
+        kp = torch.tensor(seed, dtype=torch.int64).to(grid.device)
+        props = tile_stream_batch(kp, tile_ids, k_per_tile, interior,
+                                  p.neighbourhood)
+        return run_round(grid, props, shift)
+
+    return BuiltEngine(schedule, one_mcs,
                        attempts_per_mcs=n_tiles * k_per_tile, device=device)
+
+
+@register("sublattice", EngineCaps(flux_only=True, tiled=True))
+def _build_sublattice(p: "EscgParams", dom: torch.Tensor,
+                      device: torch.device) -> BuiltEngine:
+    """Shifted-window synchronous sublattice in plain PyTorch (E3): the
+    tile sweep of ``sublattice.run_round``, vectorised over tiles."""
+    t_eps, t_eps_mu = p.action_thresholds()
+
+    def run_round(grid, props, shift):
+        return sublattice.run_round(grid, props, shift, p.tile, t_eps,
+                                    t_eps_mu, dom, roll_back=False)
+
+    return _build_tiled(p, device, run_round)
+
+
+@register("pallas", EngineCaps(flux_only=True, tiled=True,
+                               equiv_oracle="sublattice"))
+def _build_pallas(p: "EscgParams", dom: torch.Tensor,
+                  device: torch.device) -> BuiltEngine:
+    """The sublattice round as the CUDA kernel K3, one thread per tile,
+    proposals read from the stream buffers."""
+    from ..kernels import ops as kernel_ops  # kernels import core modules
+    t_eps, t_eps_mu = p.action_thresholds()
+    dirs = torch.as_tensor(DIRS, dtype=torch.int32).to(device)
+
+    def run_round(grid, props, shift):
+        return kernel_ops.escg_round(grid, props, shift, dom, dirs, p.tile,
+                                     t_eps, t_eps_mu, roll_back=False)
+
+    return _build_tiled(p, device, run_round)

@@ -36,6 +36,7 @@ def init_grid(key: torch.Tensor, height: int, width: int, species: int,
 
 
 def counts(grid: torch.Tensor, species: int) -> torch.Tensor:
-    """Population counts per label 0..S (0 = empties), on the grid's
-    device."""
-    return torch.bincount(grid.reshape(-1), minlength=species + 1)
+    """Population counts per label 0..S (0 = empties), (S+1,) int32 on the
+    grid's device: kernel K4 on the card, its plain version on the CPU."""
+    from ..kernels.density import density_counts  # kernels import core
+    return density_counts(grid, species)

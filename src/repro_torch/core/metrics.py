@@ -1,6 +1,6 @@
 """Densities and stasis detection (port of ``repro.core.metrics``, paper
-§3.2.2). The counts are a ``torch.bincount`` on the grid's device, as the
-reference takes them with ``jnp.bincount`` outside any kernel."""
+§3.2.2). The counts are kernel K4 (``kernels/density.py``) on the grid's
+device, where the reference takes them with ``jnp.bincount``."""
 from __future__ import annotations
 
 import torch

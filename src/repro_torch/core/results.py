@@ -1,9 +1,7 @@
 """Result streams (port of ``repro.core.results``, DESIGN.md §11).
 
-``densities`` is the only stream this port produces. ``STREAM_NAMES`` are
-the streaming observables the reference registers
-(``repro/core/observables.py``); the port knows their names so that it can
-refuse them by name, and ports the pipeline later.
+``STREAM_NAMES`` are the streaming observables registered in
+``core/observables.py``, read from the registry each time.
 """
 from __future__ import annotations
 
@@ -13,7 +11,12 @@ import numpy as np
 
 __all__ = ["STREAM_NAMES", "encode_observables", "decode_observables"]
 
-STREAM_NAMES = ("densities", "interface_length", "cluster_size", "snapshot")
+
+def __getattr__(name: str):
+    if name == "STREAM_NAMES":
+        from .observables import observable_names
+        return observable_names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def encode_observables(obs: Mapping[str, np.ndarray]) -> Dict[str, dict]:

@@ -1,4 +1,4 @@
-"""Proposal containers and the sublattice shift draw (port of
+"""Proposal streams and the sublattice shift draw (port of
 ``repro.core.rng``, paper §3.2.1)."""
 from __future__ import annotations
 
@@ -16,6 +16,23 @@ class ProposalBatch(NamedTuple):
     dirn: torch.Tensor    # int32  direction id in [0, nbhd)
     u_act: torch.Tensor   # float32 action draw in [0, 1)
     u_dom: torch.Tensor   # float32 dominance draw in [0, 1)
+
+
+def tile_stream_batch(key: torch.Tensor, tile_ids: torch.Tensor,
+                      k_per_tile: int, interior: int,
+                      neighbourhood: int) -> ProposalBatch:
+    """Per-tile counter-based proposal streams: tile ``t``'s draws depend
+    only on ``(key, global tile id)``, as in the reference, where this is
+    ``jax.vmap`` over the tile ids of ``split(fold_in(key, tid), 4)``,
+    two ``randint`` and two ``uniform`` draws of ``k_per_tile`` values.
+    Returns (len(tile_ids), K) fields on the key's device."""
+    keys = threefry.split_batch(threefry.fold_in_batch(key, tile_ids), 4)
+    return ProposalBatch(
+        cell=threefry.randint_batch(keys[:, 0], k_per_tile, 0, interior),
+        dirn=threefry.randint_batch(keys[:, 1], k_per_tile, 0,
+                                    neighbourhood),
+        u_act=threefry.uniform_batch(keys[:, 2], k_per_tile),
+        u_dom=threefry.uniform_batch(keys[:, 3], k_per_tile))
 
 
 def round_shift(key: torch.Tensor, th: int, tw: int) -> torch.Tensor:

@@ -22,8 +22,8 @@ import numpy as np
 
 from . import dominance as dom_mod
 from .engines import get_engine
+from .observables import observable_names
 from .params import EscgParams
-from .results import STREAM_NAMES
 
 __all__ = [
     "Scenario", "ScenarioCaps", "ScenarioSpec", "EngineConfig", "RunConfig",
@@ -308,7 +308,8 @@ def scenario_observables(name: str) -> Tuple[str, ...]:
     spec = _spec_for(name)
     if spec is None:
         return ()
-    return tuple(o for o in spec.caps.observables if o in STREAM_NAMES)
+    streams = observable_names()
+    return tuple(o for o in spec.caps.observables if o in streams)
 
 
 # ------------------------------ presets ------------------------------------ #

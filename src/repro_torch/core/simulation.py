@@ -9,8 +9,9 @@ for the stasis early-exit (paper §3.2.2) and the hooks. ``k_mcs > 1`` runs
 each chunk as ``divmod(n_mcs, k_mcs)`` megakernel launches, bit-identical
 to ``k_mcs = 1``.
 
-The observable pipeline (DESIGN.md §11) is not ported: a run that
-resolves to a non-empty observable set raises ``NotImplementedError``.
+With observables (DESIGN.md §11, ``core/observables.py``) every per-MCS
+statistic, the species counts included, is banked on the device into a
+ring of rows that the host copies once per chunk.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import torch
 
 from . import dominance as dom_mod
 from . import engines, lattice, metrics, threefry
+from . import observables as obs_mod
 from .device import DeviceLike, resolve_device
 from .params import EscgParams
 from .results import decode_observables, encode_observables
@@ -87,19 +89,63 @@ def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
                 stop = start + size
                 grid, cnts = built.multi_mcs(grid, sched[0, start:stop],
                                              sched[1, start:stop])
-                parts.append(cnts.to(torch.int64))
+                parts.append(cnts)
                 start = stop
         else:
             for seed, shift in zip(seeds.tolist(), shifts.tolist()):
                 grid = built.one_mcs(grid, seed, shift)
                 parts.append(metrics.counts(grid, s)[None])
         cnts = (torch.cat(parts) if parts else
-                torch.zeros((0, s + 1), dtype=torch.int64,
+                torch.zeros((0, s + 1), dtype=torch.int32,
                             device=built.device))
         attempts = n_mcs * built.attempts_per_mcs
         return grid, key, cnts, attempts, attempts
 
     return chunk
+
+
+def build_obs_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
+    """Observable-pipeline chunk: ``chunk(grid, key, ring, pos, n_mcs) ->
+    (grid, key, ring, pos, kept, attempts)``; returns ``(chunk,
+    pipeline)``.
+
+    The per-MCS counts never leave the device on their own: every row,
+    the ``densities`` raw-count columns included, is pushed into the ring,
+    and the host takes the counts from the flushed rows. The key chain is
+    that of :func:`build_chunk_fn` (observing draws nothing), so
+    trajectories are bit-identical with observables on and off.
+
+    With ``k_mcs > 1`` the lattices inside a megakernel launch never leave
+    it: count-derived slices keep per-MCS cadence from the banked (K, S+1)
+    counts, grid-derived slices are lag-held at their value at the start
+    of the launch group."""
+    pipe = obs_mod.build_pipeline(params)
+    s = params.species
+    k_group = params.k_mcs
+
+    def chunk(grid, key, ring, pos, n_mcs: int):
+        key, seeds, shifts = built.schedule(key, n_mcs)
+        if k_group > 1:
+            sched = torch.stack([seeds, shifts]).to(built.device)
+            q, r = divmod(n_mcs, k_group)
+            start = 0
+            for size in [k_group] * q + ([r] if r else []):
+                stop = start + size
+                held = pipe.grid_values(grid)
+                grid, cnts = built.multi_mcs(grid, sched[0, start:stop],
+                                             sched[1, start:stop])
+                ring, pos = obs_mod.ring_push_many(
+                    ring, pos, pipe.row_held(cnts, held))
+                start = stop
+        else:
+            for seed, shift in zip(seeds.tolist(), shifts.tolist()):
+                grid = built.one_mcs(grid, seed, shift)
+                row = pipe.row(grid, metrics.counts(grid, s))
+                ring, pos = obs_mod.ring_push(ring, pos, row)
+        attempts = n_mcs * built.attempts_per_mcs
+        return grid, key, ring, pos, attempts, attempts
+
+    return chunk, pipe
 
 
 def simulate(params, dom: Optional[np.ndarray] = None,
@@ -120,15 +166,15 @@ def simulate(params, dom: Optional[np.ndarray] = None,
     Chunked stasis semantics (paper §3.2.2): ``stasis_mcs`` is exact to
     the MCS, but the run only stops at the next chunk boundary. Hooks get
     ``(mcs_done, grid, counts)`` once per chunk.
+
+    A scenario's declared observables stream unless ``run.observables``
+    pins the set: the rows go to a device ring that is copied to the host
+    once per chunk and must hold a full chunk (``obs_capacity`` >= the
+    chunk, or 0 to size it to one). ``observables['densities']`` keeps the
+    initial row; the other streams have one row per MCS run.
     """
     p, dom = resolve_config(params, dom, engine, run)
     p = p.validate()
-    if p.observables:
-        raise NotImplementedError(
-            f"simulate in repro_torch does not stream observables yet "
-            f"(the run asks for {p.observables}); pass "
-            f"run=RunConfig(observables=()). The observable pipeline is "
-            f"ROADMAP.md Queue 1, 'Observables'")
     dev = resolve_device(device)
     if dom is None:
         dom = dom_mod.circulant(p.species)
@@ -142,15 +188,38 @@ def simulate(params, dom: Optional[np.ndarray] = None,
     grid = torch.as_tensor(grid0).to(device=dev, dtype=cell_dt).contiguous()
 
     eng = engines.build(p, dom, dev)
-    chunk_fn = build_chunk_fn(p, eng)
+    obs_on = bool(p.observables)
+    rows_all = []
+    if obs_on:
+        chunk_fn, pipe = build_obs_chunk_fn(p, eng)
+        max_chunk = max(1, min(p.chunk_mcs, p.mcs))
+        cap = obs_mod.ring_capacity(p, max_chunk)
+        if cap < max_chunk:
+            raise ValueError(
+                f"obs_capacity {cap} < chunk rows {max_chunk}: simulate "
+                "copies the ring once per chunk and its stasis accounting "
+                "reads every row, so the ring must hold a full chunk "
+                "(0 = auto-size)")
+        ring, pos = obs_mod.ring_init(cap, (pipe.width,), dev)
+    else:
+        chunk_fn = build_chunk_fn(p, eng)
     hist = [metrics.counts(grid, p.species).cpu().numpy()[None]]
     mcs_done, stasis_mcs = 0, -1
     kept_total, att_total = 0, 0
 
     while mcs_done < p.mcs:
         n_mcs = min(p.chunk_mcs, p.mcs - mcs_done)
-        grid, key, cnts, kept, att = chunk_fn(grid, key, n_mcs)
-        cnts_h = cnts.cpu().numpy()          # one transfer per chunk
+        if obs_on:
+            grid, key, ring, pos, kept, att = chunk_fn(grid, key, ring, pos,
+                                                       n_mcs)
+            # one copy per chunk: the rows carry every per-MCS statistic
+            rows_h = obs_mod.ring_flush(ring.cpu().numpy(), mcs_done,
+                                        mcs_done + n_mcs)
+            rows_all.append(rows_h)
+            cnts_h = pipe.counts_from_rows(rows_h, p.species)
+        else:
+            grid, key, cnts, kept, att = chunk_fn(grid, key, n_mcs)
+            cnts_h = cnts.cpu().numpy()          # one transfer per chunk
         hist.append(cnts_h)
         kept_total += kept
         att_total += att
@@ -164,8 +233,11 @@ def simulate(params, dom: Optional[np.ndarray] = None,
             break
 
     densities = np.concatenate(hist, axis=0) / p.n_cells
-    return SimResult(grid=grid.cpu().numpy(),
-                     observables={"densities": densities},
+    observables = {"densities": densities}
+    if rows_all:
+        observables = pipe.split(np.concatenate(rows_all, axis=0))
+        observables["densities"] = densities   # with the initial row
+    return SimResult(grid=grid.cpu().numpy(), observables=observables,
                      mcs_completed=mcs_done, stasis_mcs=stasis_mcs,
                      kept_fraction=(kept_total / att_total)
                      if att_total else 1.0)

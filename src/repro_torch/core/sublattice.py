@@ -9,6 +9,8 @@ tile: a loop over the K proposals, each step vectorised over all tiles.
 """
 from __future__ import annotations
 
+from typing import Tuple
+
 import torch
 
 from .lattice import DIRS
@@ -54,3 +56,21 @@ def from_tiles(tiles: torch.Tensor, h: int, w: int) -> torch.Tensor:
     return (tiles.reshape(h // th, w // tw, th, tw)
                  .permute(0, 2, 1, 3)
                  .reshape(h, w))
+
+
+def run_round(grid: torch.Tensor, props: ProposalBatch,
+              shift: Tuple[int, int], tile_shape: Tuple[int, int],
+              t_eps: float, t_eps_mu: float, dom: torch.Tensor,
+              roll_back: bool = True) -> torch.Tensor:
+    """One shifted-window round over the whole lattice (the plain
+    ``sublattice`` engine): roll by ``-shift``, sweep every tile with its
+    (T, K) proposals, and roll back unless ``roll_back=False``."""
+    h, w = grid.shape
+    th, tw = tile_shape
+    dy, dx = int(shift[0]), int(shift[1])
+    g = torch.roll(grid, (-dy, -dx), (0, 1))
+    tiles = tile_update(to_tiles(g, th, tw), props, t_eps, t_eps_mu, dom)
+    g = from_tiles(tiles, h, w)
+    if roll_back:
+        g = torch.roll(g, (dy, dx), (0, 1))
+    return g

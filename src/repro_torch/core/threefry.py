@@ -16,15 +16,24 @@ same lattice and the same per-MCS schedule:
   subtracts 1; ``randint`` draws two words per value and folds them with
   the span/multiplier scheme of ``jax.random.randint``.
 
-uint32 arithmetic runs on int64 tensors masked back to 32 bits. Keys live
-on the host; the counter arrays, and so the draws, live on ``device``.
+uint32 arithmetic runs on int64 tensors masked back to 32 bits. The
+per-MCS key chain keeps its keys on the host and hashes them with Python
+integer words (``_hash``); a sampler draws on the key's device unless it
+is given another.
+
+The ``*_batch`` functions are ``jax.vmap`` of the scalar ones over a
+leading batch of keys (or, for ``fold_in_batch``, of data words): the key
+words become tensors that broadcast against the shared counter array, so
+one batch of tile keys and all their draws stay on the card.
 """
 from __future__ import annotations
 
 import math
-from typing import Sequence, Tuple, Union
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
+
+from .device import DeviceLike
 
 MASK = 0xFFFFFFFF
 _PARITY = 0x1BD11BDA
@@ -105,29 +114,42 @@ def fold_in(key: torch.Tensor, data: int) -> torch.Tensor:
     return threefry_2x32(key, seed)
 
 
-def random_bits(key: torch.Tensor, shape: Shape,
-                device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """uint32 words (as int64) of the given shape on ``device``."""
-    shape = _shape(shape)
-    size = math.prod(shape)
+def _check_size(size: int) -> None:
     if size >= MASK:
         raise NotImplementedError(
             "more than 2^32 - 2 words from one key takes the reference's "
             "blocked scheme, which is not ported")
+
+
+def random_bits(key: torch.Tensor, shape: Shape,
+                device: Optional[DeviceLike] = None) -> torch.Tensor:
+    """uint32 words (as int64) of the given shape on ``device`` (default:
+    the key's device)."""
+    shape = _shape(shape)
+    size = math.prod(shape)
+    _check_size(size)
+    device = key.device if device is None else device
     counts = torch.arange(size, dtype=torch.int64, device=device)
     return threefry_2x32(key, counts).reshape(shape)
 
 
-def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
-            maxval: float = 1.0,
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
-    """float32 uniforms in [minval, maxval), as ``jax.random.uniform``."""
-    bits = random_bits(key, shape, device)
+def _to_unit_float(bits: torch.Tensor, minval: float,
+                   maxval: float) -> torch.Tensor:
+    """``jax.random.uniform``'s map of uint32 words to float32: the top 23
+    bits as a mantissa in [1, 2), minus 1, scaled to [minval, maxval)."""
     mantissa = (bits >> 9) | 0x3F800000
     floats = mantissa.to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=device)
-    hi = torch.tensor(maxval, dtype=torch.float32, device=device)
+    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
+    hi = torch.tensor(maxval, dtype=torch.float32, device=bits.device)
     return torch.maximum(lo, floats * (hi - lo) + lo)
+
+
+def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
+            maxval: float = 1.0,
+            device: Optional[DeviceLike] = None) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval), as ``jax.random.uniform``, on
+    ``device`` (default: the key's device)."""
+    return _to_unit_float(random_bits(key, shape, device), minval, maxval)
 
 
 def _as_int32_range(v, shape, device) -> torch.Tensor:
@@ -136,12 +158,22 @@ def _as_int32_range(v, shape, device) -> torch.Tensor:
     return torch.broadcast_to(t, shape)
 
 
+def _fold_span(higher, lower, lo, span, multiplier) -> torch.Tensor:
+    """``jax.random.randint``'s fold of two uint32 draws into [lo, lo +
+    span), as int32."""
+    offset = mul32(higher % span, multiplier) + (lower % span)
+    offset = (offset & MASK) % span
+    out = (lo + offset + 2 ** 31) & MASK
+    return (out - 2 ** 31).to(torch.int32)
+
+
 def randint(key: torch.Tensor, shape: Shape, minval, maxval,
-            device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+            device: Optional[DeviceLike] = None) -> torch.Tensor:
     """int32 values in [minval, maxval), as ``jax.random.randint`` with
     ``dtype=int32``; ``minval``/``maxval`` may be arrays that broadcast to
-    ``shape``."""
+    ``shape``. Drawn on ``device`` (default: the key's device)."""
     shape = _shape(shape)
+    device = key.device if device is None else device
     k1, k2 = split(key)
     higher = random_bits(k1, shape, device)
     lower = random_bits(k2, shape, device)
@@ -151,7 +183,88 @@ def randint(key: torch.Tensor, shape: Shape, minval, maxval,
     span = torch.where(hi <= lo, torch.ones_like(span), span)
     multiplier = (2 ** 16) % span
     multiplier = mul32(multiplier, multiplier) % span
-    offset = mul32(higher % span, multiplier) + (lower % span)
-    offset = (offset & MASK) % span
-    out = (lo + offset + 2 ** 31) & MASK
-    return (out - 2 ** 31).to(torch.int32)
+    return _fold_span(higher, lower, lo, span, multiplier)
+
+
+# ------------------------- batches of keys (vmap) ------------------------- #
+
+def _hash_batch(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                x1: torch.Tensor):
+    """``_hash`` with tensor key words that broadcast against the counter
+    halves ``x0``/``x1``; a separate function so that the host chain's
+    scalar hash keeps its Python-integer keys."""
+    k2 = k0 ^ k1 ^ _PARITY
+    ks = (k0, k1, k2)
+    x0 = (x0 + k0) & MASK
+    x1 = (x1 + k1) & MASK
+    for block in range(5):
+        for rot in _ROTATIONS[block % 2]:
+            x0 = (x0 + x1) & MASK
+            x1 = ((x1 << rot) | (x1 >> (32 - rot))) & MASK
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(block + 1) % 3]) & MASK
+        x1 = (x1 + (ks[(block + 2) % 3] + (block + 1))) & MASK
+    return x0, x1
+
+
+def _threefry_batch(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``vmap(lambda k: threefry_2x32(k, arange(n)))(keys)``: keys (..., 2)
+    int64, result (..., n) on the keys' device. Every key hashes the same
+    counters, padded with one zero word when ``n`` is odd."""
+    if keys.shape[-1:] != (2,):
+        raise ValueError(f"keys have shape (..., 2), got "
+                         f"{tuple(keys.shape)}")
+    half = (n + 1) // 2
+    counts = torch.arange(2 * half, dtype=torch.int64, device=keys.device)
+    if n % 2:
+        counts[-1] = 0
+    x0, x1 = _hash_batch(keys[..., 0:1], keys[..., 1:2], counts[:half],
+                         counts[half:])
+    return torch.cat([x0, x1], dim=-1)[..., :n]
+
+
+def fold_in_batch(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
+    """``vmap(lambda d: fold_in(key, d))(data)``: one key (2,), data a
+    tensor of 32-bit integers; keys (*data.shape, 2) on the key's
+    device."""
+    if key.shape != (2,):
+        raise ValueError(f"a key has shape (2,), got {tuple(key.shape)}")
+    d = data.to(device=key.device, dtype=torch.int64) & MASK
+    x0, x1 = _hash_batch(key[0], key[1], torch.zeros_like(d), d)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def split_batch(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``vmap(lambda k: split(k, num))(keys)``: keys (..., 2) -> (..., num,
+    2)."""
+    return _threefry_batch(keys, 2 * num).reshape(
+        keys.shape[:-1] + (num, 2))
+
+
+def random_bits_batch(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``vmap(lambda k: random_bits(k, (n,)))(keys)``: (..., n) uint32
+    words as int64."""
+    _check_size(n)
+    return _threefry_batch(keys, n)
+
+
+def uniform_batch(keys: torch.Tensor, n: int, minval: float = 0.0,
+                  maxval: float = 1.0) -> torch.Tensor:
+    """``vmap(lambda k: uniform(k, (n,), minval, maxval))(keys)``."""
+    return _to_unit_float(random_bits_batch(keys, n), minval, maxval)
+
+
+def randint_batch(keys: torch.Tensor, n: int, minval: int,
+                  maxval: int) -> torch.Tensor:
+    """``vmap(lambda k: randint(k, (n,), minval, maxval))(keys)`` for
+    integer bounds: (..., n) int32, the same two draws per value and the
+    same span/multiplier fold as ``randint``."""
+    lo = max(-(2 ** 31), min(int(minval), 2 ** 31 - 1))
+    hi = max(-(2 ** 31), min(int(maxval), 2 ** 31 - 1))
+    span = (hi - lo) & MASK if hi > lo else 1
+    multiplier = (2 ** 16) % span
+    multiplier = (multiplier * multiplier) % 2 ** 32 % span
+    sub = split_batch(keys)
+    higher = random_bits_batch(sub[..., 0, :], n)
+    lower = random_bits_batch(sub[..., 1, :], n)
+    return _fold_span(higher, lower, lo, span, multiplier)

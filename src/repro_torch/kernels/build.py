@@ -17,14 +17,19 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
 
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
-LIBRARIES = ("escg_update_fused",)
+LIBRARIES = ("escg_update_fused", "escg_update", "density", "philox")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# the lattice types the update and histogram kernels are compiled for
+CELL_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -106,3 +111,36 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
     if err != 0:
         msg = lib.escg_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch_args(t: torch.Tensor) -> Tuple[int, ctypes.c_void_p]:
+    """(device index, current stream) for a launch on ``t``'s card; a
+    tensor that is not on a card raises."""
+    if not t.is_cuda:
+        raise ValueError(f"the kernels run on CUDA tensors; got a tensor "
+                         f"on {t.device}")
+    stream = torch.cuda.current_stream(t.device).cuda_stream
+    return t.device.index or 0, ctypes.c_void_p(stream)
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    """A contiguous tensor's data pointer for a C argument."""
+    if not t.is_contiguous():
+        raise ValueError("the kernels take contiguous tensors")
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def check_tables(grid: torch.Tensor, dom: torch.Tensor,
+                 dirs: torch.Tensor) -> None:
+    """The update kernels' tables: ``dom`` a square float32 dominance
+    matrix and ``dirs`` the (8, 2) int32 direction table, both on the
+    grid's device."""
+    if dom.dtype != torch.float32 or dom.dim() != 2 \
+            or dom.shape[0] != dom.shape[1]:
+        raise ValueError("dom must be a square float32 matrix")
+    if dirs.dtype != torch.int32 or tuple(dirs.shape) != (8, 2):
+        raise ValueError("dirs must be the (8, 2) int32 direction table")
+    for name, t in (("dom", dom), ("dirs", dirs)):
+        if t.device != grid.device:
+            raise ValueError(f"{name} is on {t.device}, grid on "
+                             f"{grid.device}")

@@ -1,0 +1,62 @@
+"""Species histogram kernel (port of ``repro.kernels.density``).
+
+K4, ``density_counts``: the counts of labels 0..S over an (H, W) lattice,
+(S+1,) int32; labels outside 0..S are not counted. The CUDA kernel is
+``density_kernel`` in ``csrc/density.cu`` (per-block bins in shared
+memory, integer atomics, exact); its plain version is the reference's
+one-hot sum.
+
+The wrapper launches the kernel for a CUDA grid and takes the plain
+version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import build
+
+LAUNCHES = {"density_counts": 0}
+
+_LIB = "density"
+MAX_LABELS = 4096      # the bins live in a block's shared memory
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_LIB)
+    fn = lib.density_counts
+    if fn.argtypes is None:
+        i32, ptr = ctypes.c_int, ctypes.c_void_p
+        fn.argtypes = [i32, ptr, ctypes.c_int64, i32, ptr, i32, ptr]
+        fn.restype = i32
+    return lib
+
+
+def density_counts_plain(grid: torch.Tensor, species: int) -> torch.Tensor:
+    """Plain version of K4 (any device): the one-hot of every cell over
+    labels 0..S, summed."""
+    labels = torch.arange(species + 1, device=grid.device)
+    return (grid.reshape(-1, 1) == labels).sum(dim=0, dtype=torch.int32)
+
+
+def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
+    """Counts per label 0..S of an int8/int16/int32 lattice, (S+1,) int32
+    on the grid's device."""
+    if grid.dtype not in build.CELL_DTYPES:
+        raise ValueError(f"grid dtype must be int8/int16/int32, got "
+                         f"{grid.dtype}")
+    if not 0 <= species < MAX_LABELS:
+        raise ValueError(f"species must be in [0, {MAX_LABELS}), got "
+                         f"{species}")
+    if grid.device.type == "cpu":
+        return density_counts_plain(grid, species)
+    device, stream = build.launch_args(grid)
+    out = torch.empty(species + 1, dtype=torch.int32, device=grid.device)
+    lib = _lib()
+    err = lib.density_counts(grid.element_size(), build.ptr(grid),
+                             grid.numel(), species + 1, build.ptr(out),
+                             device, stream)
+    build.check(lib, err, "density_counts launch")
+    LAUNCHES["density_counts"] += 1
+    return out

@@ -1,0 +1,111 @@
+"""Stream-fed sublattice kernel (port of ``repro.kernels.escg_update``).
+
+K3, ``escg_tile_round``: one round over an already rolled lattice. Tile t
+plays the K proposals of row t of the (T, K) buffers ``cell``, ``dirn``,
+``u_act`` and ``u_dom`` (raster tile order, filled by
+``rng.tile_stream_batch``) in order on its interior. The CUDA kernel is
+``tile_round_kernel`` in ``csrc/escg_update.cu``, one thread per tile; its
+plain version is ``core.sublattice.tile_update`` over all tiles.
+
+The wrapper launches the kernel for a CUDA grid and takes the plain
+version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Tuple
+
+import torch
+
+from ..core import sublattice
+from ..core.rng import ProposalBatch
+from . import build
+
+LAUNCHES = {"escg_tile_round": 0}
+
+_LIB = "escg_update"
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load(_LIB)
+    fn = lib.escg_tile_round
+    if fn.argtypes is None:
+        i32, ptr, f32 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
+        fn.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr,
+                       ptr, ptr, ptr, i32, ptr, f32, f32, i32, ptr]
+        fn.restype = i32
+    return lib
+
+
+def _check(grid: torch.Tensor, cell: torch.Tensor, dirn: torch.Tensor,
+           u_act: torch.Tensor, u_dom: torch.Tensor,
+           tile_shape: Tuple[int, int]) -> int:
+    """Validate the lattice and the proposal buffers; returns K."""
+    if grid.dim() != 2 or grid.dtype not in build.CELL_DTYPES:
+        raise ValueError(f"grid must be a 2-D int8/int16/int32 tensor, got "
+                         f"{tuple(grid.shape)} {grid.dtype}")
+    h, w = grid.shape
+    th, tw = tile_shape
+    if th < 3 or tw < 3 or h % th or w % tw:
+        raise ValueError(f"tile {tile_shape} must be >= 3x3 and divide "
+                         f"the grid {h}x{w}")
+    n_tiles = (h // th) * (w // tw)
+    if cell.dim() != 2 or cell.shape[0] != n_tiles:
+        raise ValueError(f"proposals must be ({n_tiles}, K) for "
+                         f"{n_tiles} tiles, got {tuple(cell.shape)}")
+    for name, t, dt in (("cell", cell, torch.int32),
+                        ("dirn", dirn, torch.int32),
+                        ("u_act", u_act, torch.float32),
+                        ("u_dom", u_dom, torch.float32)):
+        if t.dtype != dt or t.shape != cell.shape \
+                or t.device != grid.device:
+            raise ValueError(f"{name} must be {tuple(cell.shape)} {dt} on "
+                             f"{grid.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return cell.shape[1]
+
+
+def escg_tile_round_plain(grid: torch.Tensor, cell: torch.Tensor,
+                          dirn: torch.Tensor, u_act: torch.Tensor,
+                          u_dom: torch.Tensor, dom: torch.Tensor,
+                          tile_shape: Tuple[int, int], t_eps: float,
+                          t_eps_mu: float) -> torch.Tensor:
+    """Plain version of K3 (same function, any device): the tile sweep of
+    ``core.sublattice`` over every tile."""
+    h, w = grid.shape
+    th, tw = tile_shape
+    tiles = sublattice.tile_update(
+        sublattice.to_tiles(grid, th, tw),
+        ProposalBatch(cell, dirn, u_act, u_dom), t_eps, t_eps_mu, dom)
+    return sublattice.from_tiles(tiles, h, w)
+
+
+def escg_tile_round(grid: torch.Tensor, cell: torch.Tensor,
+                    dirn: torch.Tensor, u_act: torch.Tensor,
+                    u_dom: torch.Tensor, dom: torch.Tensor,
+                    dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                    t_eps: float, t_eps_mu: float) -> torch.Tensor:
+    """One sublattice round over an already shifted (H, W) grid; returns a
+    new grid. ``cell``/``dirn`` (T, K) int32 and ``u_act``/``u_dom`` (T, K)
+    float32 in raster tile order, with ``cell`` in [0, interior) and
+    ``dirn`` a row of ``dirs``; ``dom`` the padded (S+1, S+1) float32
+    dominance matrix and ``dirs`` the (8, 2) int32 direction table, all on
+    the grid's device."""
+    k = _check(grid, cell, dirn, u_act, u_dom, tile_shape)
+    build.check_tables(grid, dom, dirs)
+    if grid.device.type == "cpu":
+        return escg_tile_round_plain(grid, cell, dirn, u_act, u_dom, dom,
+                                     tile_shape, t_eps, t_eps_mu)
+    device, stream = build.launch_args(grid)
+    h, w = grid.shape
+    th, tw = tile_shape
+    out = torch.empty_like(grid)
+    lib = _lib()
+    err = lib.escg_tile_round(
+        grid.element_size(), build.ptr(out), build.ptr(grid), h, w, th, tw,
+        int(k), build.ptr(cell), build.ptr(dirn), build.ptr(u_act),
+        build.ptr(u_dom), build.ptr(dom), dom.shape[0], build.ptr(dirs),
+        float(t_eps), float(t_eps_mu), device, stream)
+    build.check(lib, err, "escg_tile_round launch")
+    LAUNCHES["escg_tile_round"] += 1
+    return out

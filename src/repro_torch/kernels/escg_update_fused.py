@@ -35,7 +35,6 @@ from .philox import philox_proposal_fields
 
 LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0}
 
-_CELL_DTYPES = (torch.int8, torch.int16, torch.int32)
 _LIB = "escg_update_fused"
 
 
@@ -60,7 +59,7 @@ def _geometry(grid: torch.Tensor, tile_shape: Tuple[int, int],
               k_per_tile: int, grid_tiles_w: Optional[int]):
     if grid.dim() != 2:
         raise ValueError(f"grid must be 2-D, got shape {tuple(grid.shape)}")
-    if grid.dtype not in _CELL_DTYPES:
+    if grid.dtype not in build.CELL_DTYPES:
         raise ValueError(f"grid dtype must be int8/int16/int32, got "
                          f"{grid.dtype}")
     h, w = grid.shape
@@ -83,29 +82,7 @@ def _check_tables(grid: torch.Tensor, dom: torch.Tensor,
                   dirs: torch.Tensor, neighbourhood: int) -> None:
     if neighbourhood not in (4, 8):
         raise ValueError("neighbourhood must be 4 or 8")
-    if dom.dtype != torch.float32 or dom.dim() != 2 \
-            or dom.shape[0] != dom.shape[1]:
-        raise ValueError("dom must be a square float32 matrix")
-    if dirs.dtype != torch.int32 or tuple(dirs.shape) != (8, 2):
-        raise ValueError("dirs must be the (8, 2) int32 direction table")
-    for name, t in (("dom", dom), ("dirs", dirs)):
-        if t.device != grid.device:
-            raise ValueError(f"{name} is on {t.device}, grid on "
-                             f"{grid.device}")
-
-
-def _launch_args(grid: torch.Tensor):
-    if not grid.is_cuda:
-        raise ValueError(f"the kernels run on CUDA tensors; got a tensor "
-                         f"on {grid.device}")
-    stream = torch.cuda.current_stream(grid.device).cuda_stream
-    return grid.device.index or 0, ctypes.c_void_p(stream)
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    if not t.is_contiguous():
-        raise ValueError("the kernels take contiguous tensors")
-    return ctypes.c_void_p(t.data_ptr())
+    build.check_tables(grid, dom, dirs)
 
 
 def _lib() -> ctypes.CDLL:
@@ -129,7 +106,7 @@ def _lib() -> ctypes.CDLL:
 
 def cooperative_blocks(grid: torch.Tensor, species: int) -> int:
     """Blocks the K2 cooperative launch may use on the grid's card."""
-    device, _ = _launch_args(grid)
+    device, _ = build.launch_args(grid)
     return _lib().escg_tile_rounds_fused_blocks(
         grid.element_size(), species + 1, device)
 
@@ -183,15 +160,15 @@ def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
         return escg_tile_round_fused_plain(
             grid, seed, round_idx, dom, tile_shape, k_per_tile, t_eps,
             t_eps_mu, neighbourhood, tile_offset, grid_tiles_w)
-    device, stream = _launch_args(grid)
+    device, stream = build.launch_args(grid)
     out = torch.empty_like(grid)
     lib = _lib()
     err = lib.escg_tile_round_fused(
-        grid.element_size(), _ptr(out), _ptr(grid), h, w, th, tw,
+        grid.element_size(), build.ptr(out), build.ptr(grid), h, w, th, tw,
         int(k_per_tile), gtw & MASK, int(tile_offset[0]) & MASK,
         int(tile_offset[1]) & MASK, int(seed[0]) & MASK,
-        int(seed[1]) & MASK, int(round_idx) & MASK, _ptr(dom),
-        dom.shape[0], _ptr(dirs), int(neighbourhood), float(t_eps),
+        int(seed[1]) & MASK, int(round_idx) & MASK, build.ptr(dom),
+        dom.shape[0], build.ptr(dirs), int(neighbourhood), float(t_eps),
         float(t_eps_mu), device, stream)
     build.check(lib, err, "escg_tile_round_fused launch")
     LAUNCHES["escg_tile_round_fused"] += 1
@@ -251,7 +228,7 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
         return escg_tile_rounds_fused_plain(
             grid, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
             t_eps_mu, species, neighbourhood, tile_offset, grid_tiles_w)
-    device, stream = _launch_args(grid)
+    device, stream = build.launch_args(grid)
     out = torch.empty_like(grid)
     scratch = torch.empty_like(grid)
     counts = torch.empty((n_steps, species + 1), dtype=torch.int32,
@@ -260,11 +237,12 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
         return grid.clone(), counts
     lib = _lib()
     err = lib.escg_tile_rounds_fused(
-        grid.element_size(), _ptr(out), _ptr(scratch), _ptr(grid), h, w,
-        th, tw, int(k_per_tile), gtw & MASK, int(tile_offset[0]) & MASK,
-        int(tile_offset[1]) & MASK, _ptr(seeds), _ptr(shifts), n_steps,
-        _ptr(dom), dom.shape[0], _ptr(dirs), int(neighbourhood),
-        float(t_eps), float(t_eps_mu), _ptr(counts), device, stream)
+        grid.element_size(), build.ptr(out), build.ptr(scratch),
+        build.ptr(grid), h, w, th, tw, int(k_per_tile), gtw & MASK,
+        int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK,
+        build.ptr(seeds), build.ptr(shifts), n_steps, build.ptr(dom),
+        dom.shape[0], build.ptr(dirs), int(neighbourhood), float(t_eps),
+        float(t_eps_mu), build.ptr(counts), device, stream)
     build.check(lib, err, "escg_tile_rounds_fused cooperative launch")
     LAUNCHES["escg_tile_rounds_fused"] += 1
     return out, counts

@@ -1,13 +1,56 @@
-"""Launch wrappers around the fused kernels (port of
-``repro.kernels.ops``): the torus roll stays outside K1, as the
-reference keeps it outside its Pallas call."""
+"""Launch wrappers around the kernels (port of ``repro.kernels.ops``): the
+torus roll stays outside K1 and K3, as the reference keeps it outside its
+Pallas calls. ``launches``/``reset_launches`` read and clear every
+kernel's launch count."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
+from ..core.rng import ProposalBatch
+from . import density as density_kernel
+from . import escg_update as escg_kernel
 from . import escg_update_fused as fused
+from . import philox as philox_kernel
+from .philox import philox_bits, philox_uniform
+
+__all__ = ["escg_round", "escg_round_fused", "escg_rounds_fused",
+           "density_counts", "philox_bits", "philox_uniform", "launches",
+           "reset_launches"]
+
+_COUNTED = (fused, escg_kernel, density_kernel, philox_kernel)
+
+
+def launches() -> Dict[str, int]:
+    """Kernel name -> launches since the last reset."""
+    out = {}
+    for mod in _COUNTED:
+        out.update(mod.LAUNCHES)
+    return out
+
+
+def reset_launches() -> None:
+    for mod in _COUNTED:
+        for name in mod.LAUNCHES:
+            mod.LAUNCHES[name] = 0
+
+
+def escg_round(grid: torch.Tensor, props: ProposalBatch,
+               shift: Tuple[int, int], dom: torch.Tensor, dirs: torch.Tensor,
+               tile_shape: Tuple[int, int], t_eps: float, t_eps_mu: float,
+               roll_back: bool = True) -> torch.Tensor:
+    """Stream-fed sublattice round, the kernel twin of
+    ``sublattice.run_round``: roll by ``-shift``, one K3 launch with the
+    (T, K) proposals, and roll back unless ``roll_back=False``."""
+    dy, dx = int(shift[0]), int(shift[1])
+    g = torch.roll(grid, (-dy, -dx), (0, 1))
+    g = escg_kernel.escg_tile_round(g, props.cell, props.dirn, props.u_act,
+                                    props.u_dom, dom, dirs, tile_shape,
+                                    t_eps, t_eps_mu)
+    if roll_back:
+        g = torch.roll(g, (dy, dx), (0, 1))
+    return g
 
 
 def escg_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
@@ -44,3 +87,8 @@ def escg_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
     return fused.escg_tile_rounds_fused(
         grid, seeds, shifts, dom, dirs, tile_shape, k_per_tile, t_eps,
         t_eps_mu, species, neighbourhood, tile_offset, grid_tiles_w)
+
+
+def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
+    """Counts per label 0..S, (S+1,) int32 (K4 on the card)."""
+    return density_kernel.density_counts(grid, species)

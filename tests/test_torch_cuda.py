@@ -7,8 +7,8 @@ JAX, so they run on the GPU machine as they are:
 
 The kernels are held to their plain PyTorch versions (which
 ``test_torch_kernels.py`` holds to the JAX package on the CPU), and
-``simulate`` on the card to the fused golden and to itself across
-``k_mcs``.
+``simulate`` on the card to the fused golden, to itself across ``k_mcs``
+and observables, and the ``pallas`` engine to ``sublattice``.
 """
 import hashlib
 import json
@@ -18,9 +18,10 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import dominance, lattice, threefry
+from repro_torch.core import dominance, lattice, rng, threefry
 from repro_torch.core.scenarios import EngineConfig, RunConfig, make_scenario
 from repro_torch.core.simulation import simulate
+from repro_torch.kernels import density, escg_update, ops, philox
 from repro_torch.kernels import escg_update_fused as fused
 
 pytestmark = pytest.mark.cuda
@@ -109,3 +110,94 @@ def test_simulate_reproduces_golden_and_k_mcs(cuda):
     np.testing.assert_array_equal(res3.grid, res.grid)
     np.testing.assert_array_equal(res3.densities,
                                   np.asarray(want["densities"]))
+
+
+def test_tile_streams_on_the_card_equal_the_host(cuda):
+    key = threefry.PRNGKey(7)
+    ids = torch.arange(64)
+    got = rng.tile_stream_batch(key.to(cuda), ids.to(cuda), 256, 180, 4)
+    want = rng.tile_stream_batch(key, ids, 256, 180, 4)
+    for g, w in zip(got, want):
+        assert g.is_cuda and torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 4)])
+def test_stream_round_kernel_equals_plain(cuda, dtype, nbhd):
+    grid = _grid(cuda, 5, dtype)
+    dom, dirs = _tables(5, cuda)
+    props = rng.tile_stream_batch(threefry.PRNGKey(3).to(cuda),
+                                  torch.arange(64, device=cuda), 64, 84,
+                                  nbhd)
+    before = escg_update.LAUNCHES["escg_tile_round"]
+    got = escg_update.escg_tile_round(grid, *props, dom, dirs, (8, 16), 0.25,
+                                      0.6)
+    want = escg_update.escg_tile_round_plain(grid, *props, dom, (8, 16),
+                                             0.25, 0.6)
+    torch.cuda.synchronize()
+    assert escg_update.LAUNCHES["escg_tile_round"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.int16])
+@pytest.mark.parametrize("species", [3, 5])
+def test_density_kernel_equals_plain(cuda, dtype, species):
+    g = torch.randint(-1, species + 3, (300, 257), generator=torch.Generator()
+                      .manual_seed(species)).to(dtype).to(cuda)
+    got = density.density_counts(g, species)
+    want = density.density_counts_plain(g, species)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int32 and torch.equal(got, want)
+    valid = g[(g >= 0) & (g <= species)].long()
+    assert torch.equal(got.long(), torch.bincount(valid,
+                                                  minlength=species + 1))
+
+
+@pytest.mark.parametrize("n", [0, 1, 4099, 1 << 20])
+def test_philox_kernel_equals_plain(cuda, n):
+    got = philox.philox_bits(n, (0xDEADBEEF, 7), 3, device=cuda)
+    want = philox.philox_bits_plain(n, (0xDEADBEEF, 7), 3, device=cuda)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.uint32 and got.shape == (n,)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    u = philox.philox_uniform(n, (0xDEADBEEF, 7), 3, device=cuda)
+    assert torch.equal(u, philox.philox_uniform_plain(
+        n, (0xDEADBEEF, 7), 3, device=cuda))
+    assert n == 0 or (float(u.min()) >= 0.0 and float(u.max()) < 1.0)
+
+
+def test_pallas_equals_sublattice_and_counts_through_k4(cuda):
+    def run(engine, observables):
+        return simulate(make_scenario("park3"),
+                        engine=EngineConfig(engine=engine, tile=(8, 16)),
+                        run=RunConfig(length=64, height=32, mcs=4,
+                                      chunk_mcs=2, observables=observables),
+                        stop_on_stasis=False)
+    ops.reset_launches()
+    res = run("pallas", None)
+    counted = ops.launches()
+    assert counted["escg_tile_round"] == 4
+    assert counted["density_counts"] == 5      # the first lattice, 4 MCS
+    plain = run("sublattice", None)
+    np.testing.assert_array_equal(res.grid, plain.grid)
+    for name in ("densities", "interface_length"):
+        np.testing.assert_array_equal(res.observables[name],
+                                      plain.observables[name])
+    off = run("pallas", ())
+    np.testing.assert_array_equal(off.grid, res.grid)
+    np.testing.assert_array_equal(off.densities, res.densities)
+
+
+@pytest.mark.parametrize("k_mcs", [1, 3])
+def test_fused_observables_on_equal_off(cuda, k_mcs):
+    def run(observables):
+        return simulate(make_scenario("park3"),
+                        engine=EngineConfig(engine="pallas_fused",
+                                            tile=(8, 16), k_mcs=k_mcs),
+                        run=RunConfig(length=64, height=32, mcs=7,
+                                      chunk_mcs=4, observables=observables),
+                        stop_on_stasis=False)
+    on = run(("densities", "interface_length", "cluster_size", "snapshot"))
+    off = run(())
+    np.testing.assert_array_equal(on.grid, off.grid)
+    np.testing.assert_array_equal(on.densities, off.densities)

@@ -2,8 +2,10 @@
 
 On the CPU every wrapper takes its plain PyTorch version, which is held
 here to the JAX package's oracles (``kernels/ref.py``, ``core/rules.py``,
-``core/sublattice.py``) bit for bit. ``test_torch_cuda.py`` holds the
-CUDA kernels to those plain versions on the card.
+``core/sublattice.py``) bit for bit, and for K4 and K5 to the Pallas
+kernels themselves in interpret mode, which run on the installed JAX.
+``test_torch_cuda.py`` holds the CUDA kernels to those plain versions on
+the card.
 """
 import jax
 import jax.numpy as jnp
@@ -13,9 +15,13 @@ import torch
 
 from repro.core import lattice as jlattice
 from repro.core import metrics as jmetrics
+from repro.core import rng as jrng
 from repro.core import rules as jrules
+from repro.core import sublattice as jsublattice
+from repro.kernels import ops as jops
 from repro.kernels import ref
-from repro_torch.core import dominance, lattice, rules, threefry
+from repro_torch.core import dominance, lattice, rng, rules, threefry
+from repro_torch.kernels import density, escg_update
 from repro_torch.kernels import escg_update_fused as fused
 from repro_torch.kernels import ops, philox
 
@@ -250,3 +256,168 @@ def test_plain_megakernel_matches_oracle_rounds(hw, tile, species, nbhd,
             got_c[t].numpy(), np.asarray(jmetrics.counts(g, species)),
             err_msg=f"step {t} counts")
     np.testing.assert_array_equal(got_g.numpy(), np.asarray(g))
+
+
+# ------------------------- K3: plain version ----------------------------- #
+
+def _stream_props(nt, k, interior, nbhd, seed):
+    rng_np = np.random.RandomState(seed)
+    return (rng_np.randint(0, interior, (nt, k)).astype(np.int32),
+            rng_np.randint(0, nbhd, (nt, k)).astype(np.int32),
+            rng_np.rand(nt, k).astype(np.float32),
+            rng_np.rand(nt, k).astype(np.float32))
+
+
+@pytest.mark.parametrize("hw,tile,species,nbhd,dtype", [
+    ((32, 64), (8, 16), 5, 4, "int32"),
+    ((16, 16), (8, 8), 3, 8, "int8"),
+    ((24, 48), (8, 16), 8, 4, "int16"),
+])
+def test_plain_stream_round_matches_oracle(hw, tile, species, nbhd, dtype):
+    """The plain K3 equals ``ref.escg_tile_round_ref`` (the vmapped
+    ``sublattice.tile_update``), and so does the wrapper on the CPU."""
+    grid = _grid(*hw, species, dtype, seed=5)
+    dom = _dom(species)
+    nt = (hw[0] // tile[0]) * (hw[1] // tile[1])
+    props = _stream_props(nt, 57, (tile[0] - 2) * (tile[1] - 2), nbhd, 3)
+    want = np.asarray(ref.escg_tile_round_ref(
+        jnp.asarray(grid.numpy()), *map(jnp.asarray, props),
+        jnp.asarray(dom), tile, 0.25, 0.6))
+    tprops = [torch.from_numpy(a) for a in props]
+    got = escg_update.escg_tile_round_plain(grid, *tprops,
+                                            torch.from_numpy(dom), tile,
+                                            0.25, 0.6)
+    assert got.dtype == grid.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert not torch.equal(got, grid)
+    ops.reset_launches()
+    wrapped = escg_update.escg_tile_round(
+        grid, *tprops, torch.from_numpy(dom), torch.as_tensor(lattice.DIRS),
+        tile, 0.25, 0.6)
+    assert torch.equal(wrapped, got)
+    assert ops.launches()["escg_tile_round"] == 0
+
+
+@pytest.mark.parametrize("roll_back", [True, False])
+def test_escg_round_matches_reference_run_round(roll_back):
+    """``ops.escg_round`` (roll, K3, optional roll-back) against the
+    reference's plain round, which its Pallas ``ops.escg_round`` must
+    equal."""
+    grid = _grid(16, 32, 3, seed=8)
+    dom = _dom(3)
+    props = _stream_props(4, 40, 84, 4, 9)
+    want = jsublattice.run_round(
+        jnp.asarray(grid.numpy()), jrng.ProposalBatch(*map(jnp.asarray,
+                                                           props)),
+        jnp.asarray([5, 11], jnp.int32), (8, 16), 0.3, 0.65,
+        jnp.asarray(dom), roll_back=roll_back)
+    got = ops.escg_round(grid, rng.ProposalBatch(*map(torch.from_numpy,
+                                                      props)),
+                         (5, 11), torch.from_numpy(dom),
+                         torch.as_tensor(lattice.DIRS), (8, 16), 0.3, 0.65,
+                         roll_back=roll_back)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_stream_round_rejects_bad_input():
+    grid = _grid(16, 32, 3)
+    dom = torch.from_numpy(_dom(3))
+    dirs = torch.as_tensor(lattice.DIRS)
+    props = [torch.from_numpy(a) for a in _stream_props(4, 8, 84, 4, 1)]
+    with pytest.raises(ValueError, match="proposals"):
+        escg_update.escg_tile_round(grid, *(p[:3] for p in props), dom,
+                                    dirs, (8, 16), 0.2, 0.5)
+    with pytest.raises(ValueError, match="cell"):
+        escg_update.escg_tile_round(grid, props[0].long(), *props[1:], dom,
+                                    dirs, (8, 16), 0.2, 0.5)
+    with pytest.raises(ValueError, match="u_dom"):
+        escg_update.escg_tile_round(grid, *props[:3], props[3].double(),
+                                    dom, dirs, (8, 16), 0.2, 0.5)
+    with pytest.raises(ValueError, match="divide"):
+        escg_update.escg_tile_round(grid, *props, dom, dirs, (8, 12), 0.2,
+                                    0.5)
+    meta = [p.to("meta") for p in props]
+    with pytest.raises(ValueError, match="CUDA"):
+        escg_update.escg_tile_round(grid.to("meta"), *meta, dom.to("meta"),
+                                    dirs.to("meta"), (8, 16), 0.2, 0.5)
+
+
+# ------------------------- K4: plain version ----------------------------- #
+
+@pytest.mark.parametrize("hw,species", [((8, 16), 3), ((32, 128), 5),
+                                        ((17, 33), 8), ((64, 64), 1)])
+def test_plain_density_matches_reference(hw, species):
+    """Against the interpreted Pallas kernel and ``ref.density_ref``, on a
+    lattice with labels above S (neither counts them)."""
+    g = np.random.RandomState(hw[0]).randint(0, species + 3, size=hw)
+    g = g.astype(np.int32)
+    want = np.asarray(jops.density_counts(jnp.asarray(g), species))
+    np.testing.assert_array_equal(want,
+                                  np.asarray(ref.density_ref(g, species)))
+    for dtype in (torch.int32, torch.int16, torch.int8):
+        got = density.density_counts_plain(torch.from_numpy(g).to(dtype),
+                                           species)
+        assert got.dtype == torch.int32 and got.shape == (species + 1,)
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_density_skips_negative_labels_like_the_pallas_kernel():
+    g = np.array([[-1, 0, 1, 2], [3, -2, 1, 9]], np.int32)
+    want = np.asarray(jops.density_counts(jnp.asarray(g), 3))
+    got = ops.density_counts(torch.from_numpy(g), 3)
+    np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(want, [1, 2, 1, 1])
+
+
+def test_lattice_counts_go_through_the_density_wrapper():
+    grid = _grid(24, 40, 5, "int8", seed=2)
+    ops.reset_launches()
+    got = lattice.counts(grid, 5)
+    want = jmetrics.counts(jnp.asarray(grid.numpy()), 5)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert ops.launches()["density_counts"] == 0
+    with pytest.raises(ValueError, match="dtype"):
+        ops.density_counts(grid.long(), 5)
+    with pytest.raises(ValueError, match="CUDA"):
+        ops.density_counts(grid.to("meta"), 5)
+
+
+# ------------------------- K5: plain version ----------------------------- #
+
+@pytest.mark.parametrize("n", [1, 4, 1000, 4099, 8192])
+@pytest.mark.parametrize("seed,stream", [((0, 0), 0), ((0xDEADBEEF, 7), 3)])
+def test_plain_philox_bits_match_reference(n, seed, stream):
+    """Against the interpreted Pallas kernel and ``ref.philox_bits_ref``;
+    4099 is ragged (not a multiple of 4 * block)."""
+    want = np.asarray(jops.philox_bits(n, seed=seed, stream=stream,
+                                       block=256))
+    np.testing.assert_array_equal(
+        want, ref.philox_bits_ref(n, seed, stream=stream, block=256))
+    got = philox.philox_bits(n, seed, stream, 256, device="cpu")
+    assert got.dtype == torch.uint32 and got.shape == (n,)
+    np.testing.assert_array_equal(got.numpy(), want)
+    u_want = np.asarray(jops.philox_uniform(n, seed=seed, stream=stream,
+                                            block=256))
+    u = philox.philox_uniform(n, seed, stream, 256, device="cpu")
+    assert u.dtype == torch.float32
+    np.testing.assert_array_equal(u.numpy(), u_want)
+
+
+def test_philox_block_does_not_change_the_words():
+    a = philox.philox_bits(3001, (1, 2), 1, 1024, device="cpu")
+    b = philox.philox_bits(3001, (1, 2), 1, 64, device="cpu")
+    assert torch.equal(a, b)
+    u = philox.philox_uniform(200_000, (1, 2), device="cpu")
+    assert 0.0 <= float(u.min()) and float(u.max()) < 1.0
+    assert philox.philox_bits(0, (1, 2), device="cpu").shape == (0,)
+    with pytest.raises(ValueError, match="block"):
+        philox.philox_bits(8, (1, 2), block=0, device="cpu")
+    assert ops.launches()["philox_bits"] == 0
+
+
+def test_philox_entry_points_default_to_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for fn in (ops.philox_bits, ops.philox_uniform):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            fn(16, (1, 2))

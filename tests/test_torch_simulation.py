@@ -155,18 +155,8 @@ def test_no_device_means_the_card(monkeypatch):
         convert.grid_from_jax(np.zeros((8, 8), np.int32))
 
 
-def test_declared_observables_are_refused():
-    """park3 declares streaming observables; the port refuses them by
-    name rather than dropping them."""
-    with pytest.raises(NotImplementedError,
-                       match=r"RunConfig\(observables=\(\)\)"):
-        simulate(make_scenario("park3"),
-                 engine=EngineConfig(engine="pallas_fused", tile=(8, 8)),
-                 run=RunConfig(length=16, height=16, mcs=1), device="cpu")
-
-
-@pytest.mark.parametrize("engine", ["batched", "reference", "sublattice",
-                                    "pallas", "sharded", "sharded_pod"])
+@pytest.mark.parametrize("engine", ["batched", "reference", "sharded",
+                                    "sharded_pod"])
 def test_unported_engines_are_refused(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         simulate(make_scenario("park3"), engine=EngineConfig(engine=engine),
@@ -254,6 +244,11 @@ def test_port_imports_no_jax():
     code = ("import sys\n"
             "import repro_torch.core.simulation, repro_torch.convert\n"
             "import repro_torch.kernels.ops, repro_torch.kernels.build\n"
+            "import repro_torch.core.observables, repro_torch.core.rng\n"
+            "import repro_torch.core.sublattice, repro_torch.perf_probe\n"
+            "import repro_torch.kernels.escg_update\n"
+            "import repro_torch.kernels.density\n"
+            "import repro_torch.kernels.philox\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "print(bad)\n")
