@@ -5,7 +5,9 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5)
 from ``src/repro_torch/kernels/csrc``, holds each against its plain
-PyTorch version on the card, reproduces
+PyTorch version on the card (K1 and K2 also at the edges of their
+shared-memory staging: every lattice type, both neighbourhoods, four
+tiles, partial blocks of tiles, fused shifts), reproduces
 ``tests/golden/fused_trajectory.json`` through ``simulate`` on the card,
 and drives the port's paths through the entry points a user calls, each
 with the launch counts set to 0 just before it and read just after:
@@ -23,6 +25,7 @@ non-zero; without a CUDA card, or without the repository around it, it
 exits non-zero before printing a result. It imports nothing of JAX.
 """
 import hashlib
+import itertools
 import json
 import os
 import subprocess
@@ -34,6 +37,14 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "fused_trajectory.json")
 
 SIDE, TILE, MCS, CHUNK = 3200, (8, 32), 200, 100
 K_MCS = 10
+# K1's and K2's ms per launch before their redesign for shared-memory
+# staging (PERF.md's kernel table; an NVIDIA H100 80GB HBM3 at 700 W),
+# printed beside this run's
+PREVIOUS_MS = {"K1": 0.5462, "K2": 7.1767}
+# the edge cases' lattice: 900 to 3,600 tiles for the tiles below, never a
+# whole number of the 32 tiles a block stages
+EDGE_SIDE = 480
+EDGE_TILES = ((8, 8), (8, 16), (8, 32), (16, 32))
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # Instructions one elementary update needs at the least: Philox-4x32-10
 # with its round keys in registers is 10 rounds of 2 wide multiplies (hi
@@ -97,6 +108,26 @@ def max_err(torch, a, b):
 def words(torch, t):
     """uint32 words as int64 (PyTorch computes little on uint32)."""
     return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+
+def edge_cases(torch):
+    """K1/K2 cases at the staging's edges: (dtype, neighbourhood, tile,
+    proposals per tile, tile_offset, grid_tiles_w, steps, shifts). Every
+    lattice type meets every tile; K is th * tw or not; steps are 1, 3 and
+    10; shifts include 0, 1, H - 1 and W - 1."""
+    h = w = EDGE_SIDE
+    pattern = [(0, 0), (1, 1), (h - 1, w - 1), (h - 1, 0), (0, w - 1),
+               (1, w - 1), (h - 1, 1), (0, 1), (1, 0), (5, 9)]
+    cases = []
+    for i, (dtype, tile) in enumerate(itertools.product(
+            (torch.int8, torch.int16, torch.int32), EDGE_TILES)):
+        steps = (1, 3, 10)[i % 3]
+        cases.append((dtype, 4 if i % 2 == 0 else 8, tile,
+                      tile[0] * tile[1] - (7 if i % 3 == 0 else 0),
+                      (3, 7) if i % 4 == 1 else (0, 0),
+                      111 if i % 4 == 1 else None, steps,
+                      (pattern[i % 10:] + pattern[:i % 10])[:steps]))
+    return cases
 
 
 def main():
@@ -176,6 +207,36 @@ def main():
         k1_err = max(k1_err, err)
         print(f"[K1] 512x512 int8 nbhd 8 tile_offset {offset} grid_tiles_w "
               f"{gtw}: max_abs_err {err}")
+    for shift in ((1, 1), (SIDE - 1, SIDE - 1)):
+        a = fused.escg_tile_round_fused(g_main, (3, 4), 0, dom, dirs, TILE,
+                                        k, te, tem, 4, shift=shift)
+        b = fused.escg_tile_round_fused_plain(
+            torch.roll(g_main, (-shift[0], -shift[1]), (0, 1)), (3, 4), 0,
+            dom, TILE, k, te, tem, 4)
+        torch.cuda.synchronize()
+        err = max_err(torch, a, b)
+        k1_err = max(k1_err, err)
+        print(f"[K1] {SIDE}x{SIDE} int32 shift {shift} against torch.roll "
+              f"and the plain K1: max_abs_err {err}")
+    edges = edge_cases(torch)
+    edge_err = 0.0
+    for dtype, nbhd, tile, k_edge, offset, gtw, _, e_shifts in edges:
+        g = grid_on_card(EDGE_SIDE, 5, dtype, 2)
+        a = fused.escg_tile_round_fused(g, (2 ** 32 - 1, 9), 1, dom5, dirs,
+                                        tile, k_edge, 0.25, 0.6, nbhd,
+                                        offset, gtw, e_shifts[0])
+        b = fused.escg_tile_round_fused_plain(
+            torch.roll(g, (-e_shifts[0][0], -e_shifts[0][1]), (0, 1)),
+            (2 ** 32 - 1, 9), 1, dom5, tile, k_edge, 0.25, 0.6, nbhd, offset,
+            gtw)
+        torch.cuda.synchronize()
+        edge_err = max(edge_err, max_err(torch, a, b))
+    k1_err = max(k1_err, edge_err)
+    print(f"[K1] {len(edges)} edge cases at {EDGE_SIDE}x{EDGE_SIDE} (int8, "
+          f"int16, int32; nbhd 4, 8; tiles {EDGE_TILES}; K = th*tw and "
+          f"th*tw - 7; tile_offset (3, 7) with grid_tiles_w 111; shifts "
+          f"with 0, 1, H-1, W-1; partial blocks of tiles): max_abs_err "
+          f"{edge_err}")
     check(k1_err == 0.0, f"K1 disagrees with its plain version ({k1_err})")
 
     # ---- 4. K2 against its plain version ----
@@ -190,8 +251,27 @@ def main():
     k2_err = max(max_err(torch, ga, gb), max_err(torch, ca, cb))
     print(f"[K2] {SIDE}x{SIDE} K={K_MCS}: max_abs_err {k2_err} (grid and "
           f"counts), cooperative blocks "
-          f"{fused.cooperative_blocks(g_main, 3)}, counts[-1] "
+          f"{fused.cooperative_blocks(g_main, 3, TILE)}, counts[-1] "
           f"{ca[-1].tolist()}")
+    edge_err = 0.0
+    for dtype, nbhd, tile, k_edge, offset, gtw, steps, e_shifts in edges:
+        g = grid_on_card(EDGE_SIDE, 5, dtype, 3)
+        seeds_e = torch.tensor([[(0, 2 ** 32 - 1), (2 ** 32 - 1, 5),
+                                 (11, 12)][t % 3] for t in range(steps)],
+                               dtype=torch.int64, device=dev)
+        shifts_e = torch.tensor(e_shifts, dtype=torch.int64, device=dev)
+        ga, ca = fused.escg_tile_rounds_fused(
+            g, seeds_e, shifts_e, dom5, dirs, tile, k_edge, 0.25, 0.6, 5,
+            nbhd, offset, gtw)
+        gb, cb = fused.escg_tile_rounds_fused_plain(
+            g, seeds_e, shifts_e, dom5, tile, k_edge, 0.25, 0.6, 5, nbhd,
+            offset, gtw)
+        torch.cuda.synchronize()
+        edge_err = max(edge_err, max_err(torch, ga, gb),
+                       max_err(torch, ca, cb))
+    k2_err = max(k2_err, edge_err)
+    print(f"[K2] the {len(edges)} edge cases as K1's, with K = 1, 3 and 10 "
+          f"steps: max_abs_err {edge_err} (grid and counts)")
     check(k2_err == 0.0, f"K2 disagrees with its plain version ({k2_err})")
 
     # ---- 5. the fused golden through simulate on the card ----
@@ -213,17 +293,28 @@ def main():
           "card: 5 grid hashes, densities, final hash")
 
     # ---- 6. the main path ----
-    results, launches = {}, {}
+    results, launches, rolls = {}, {}, {}
+    real_roll = torch.roll
+
+    def counted_roll(*args, **kwargs):
+        rolls[k_mcs] += 1
+        return real_roll(*args, **kwargs)
+
     for k_mcs in (1, K_MCS):
         stamps = []
+        rolls[k_mcs] = 0
         ops.reset_launches()
+        torch.roll = counted_roll
         t0 = time.perf_counter()
-        r = simulate(park3,
-                     engine=EngineConfig(engine="pallas_fused", tile=TILE,
-                                         k_mcs=k_mcs),
-                     run=run,
-                     hooks=[lambda m, g, c: stamps.append(
-                         time.perf_counter())])
+        try:
+            r = simulate(park3,
+                         engine=EngineConfig(engine="pallas_fused",
+                                             tile=TILE, k_mcs=k_mcs),
+                         run=run,
+                         hooks=[lambda m, g, c: stamps.append(
+                             time.perf_counter())])
+        finally:
+            torch.roll = real_roll
         wall = time.perf_counter() - t0
         launches[k_mcs] = ops.launches()
         results[k_mcs] = r
@@ -237,8 +328,11 @@ def main():
         per_mcs = (stamps[1] - stamps[0]) / CHUNK * 1e3
         print(f"[main] park3 {SIDE}x{SIDE} k_mcs={k_mcs}: {r.mcs_completed} "
               f"MCS in {wall:.3f}s incl. set-up; second chunk "
-              f"{per_mcs:.4f} ms/MCS; launches {launches[k_mcs]}; final "
-              f"densities {dens[-1].tolist()}")
+              f"{per_mcs:.4f} ms/MCS; launches {launches[k_mcs]}; "
+              f"torch.roll calls {rolls[k_mcs]}; final densities "
+              f"{dens[-1].tolist()}")
+    check(rolls[1] == 0, f"k_mcs=1 rolled the lattice outside K1 "
+          f"({rolls[1]} torch.roll calls)")
     check(launches[1]["escg_tile_round_fused"] == MCS
           and launches[1]["escg_tile_rounds_fused"] == 0
           and launches[1]["density_counts"] == MCS + 1,
@@ -280,9 +374,12 @@ def main():
         K_MCS * (updates * OPS_PER_UPDATE + SIDE * SIDE * OPS_PER_CELL))
     for name, ms, plain, bnd, by in (
             ("K1", k1_ms, k1_plain, k1_bound, k1_by),
-            (f"K2 (K={K_MCS})", k2_ms, k2_plain, k2_bound, k2_by)):
-        print(f"[time] {name}: {ms:.4f} ms per launch, plain {plain:.2f} "
-              f"ms, bound {bnd * 1e3:.1f} us by {by} (instruction rate "
+            ("K2", k2_ms, k2_plain, k2_bound, k2_by)):
+        print(f"[time] {name}{' (K=10)' if name == 'K2' else ''}: "
+              f"{ms:.4f} ms per launch (before the redesign "
+              f"{PREVIOUS_MS[name]} ms, {PREVIOUS_MS[name] / ms:.2f}x), "
+              f"plain {plain:.2f} ms, bound {bnd * 1e3:.1f} us by {by}, "
+              f"{bnd / ms:.3f} of the bound's time (instruction rate "
               f"{instr_per_s / 1e12:.2f} T/s at {clock_hz / 1e9:.2f} GHz); "
               f"library call: none computes a sequential tile sweep")
 

@@ -4,37 +4,51 @@
 //   K1 tile_round_kernel   <- escg_tile_round_fused  (_kernel, _apply_proposal)
 //   K2 tile_rounds_kernel  <- escg_tile_rounds_fused (_mega_kernel)
 //
-// What they compute. The lattice (already rolled by the caller for K1) is cut
-// into (th, tw) tiles. Tile (i, j) has the global id
-// (off0 + i) * gw + (off1 + j); its proposal j comes from Philox-4x32-10 with
-// counter (tile_id * K + j, round, 0, 0) and key (seed0, seed1):
+// What they compute. The lattice, rolled by -shift (the torus shift of the
+// sublattice scheme), is cut into (th, tw) tiles. Tile (i, j) has the global
+// id (off0 + i) * gw + (off1 + j); its proposal j comes from Philox-4x32-10
+// with counter (tile_id * K + j, round, 0, 0) and key (seed0, seed1):
 // cell = x0 % interior, dirn = x1 % nbhd, u = (x >> 8) * 2^-24. The tile
 // applies its K proposals in order to its interior with the pair rule of
-// src/repro/core/rules.py, thresholds and p1 + p2 in float32. K2 runs K
-// Monte-Carlo steps in one launch: each step rolls the torus by -shifts[t],
-// sweeps every tile with seeds[t] at round 0 and counts the species into
-// counts[t]; the grid stays in the drifted frame.
+// src/repro/core/rules.py, thresholds and p1 + p2 in float32. K1 is one such
+// round. K2 runs K Monte-Carlo steps in one launch: step t rolls by
+// -shifts[t], sweeps every tile with seeds[t] at round 0 and counts the
+// species into counts[t]; the grid stays in the drifted frame.
 //
 // What bounds them on this card. Every proposal costs some 80 integer and
-// float instructions (Philox alone is 10 rounds of two 32x32->64 multiplies
-// and two three-way xors) against 4 one-cell loads and stores, so the sweep
-// is bound by the instructions it executes, not by the 2 x H x W bytes it
-// must move.
-// The proposals of one tile depend on each other through the cells they
-// touch, so a tile is one thread's sequential loop; the parallelism is the
-// tile count (40,000 at 3200 x 3200 with 8 x 32 tiles).
+// float instructions against 4 one-cell accesses, so the sweep is bound by
+// the instructions it issues, not by the 2 x H x W bytes it must move.
+// Philox alone is 10 rounds of two 32 x 32 -> 64-bit multiplies and two
+// three-input xors, and the multiplies go through the integer multiply
+// pipe, which runs at a fraction of the float rate: at 3200 x 3200 the
+// rounds alone take 35 of K1's 128 microseconds, and the tile load and
+// store another 37 (probe/k1_probe.cu, on an H100 at 700 W). The
+// proposals of one tile depend on each other through the cells they touch,
+// so a tile is one thread's sequential loop and the parallelism is the tile
+// count (40,000 at 3200 x 3200 with 8 x 32 tiles): every tile's chain must
+// be resident at once.
 //
-// What the design does about it. One thread per tile, Philox inlined with
-// __umulhi for the high word and a plain multiply for the low word, the
-// round keys and the tile's counter base kept in registers, no proposal
-// ever written to memory. The tile lives in device memory and is reached
-// through L1/L2; keeping it in registers or shared memory is later work.
-// K2 cannot end a step with a kernel boundary, so it is a cooperative
-// launch sized from the occupancy calculator: the grid strides over cells
-// for the roll (into a ping-pong buffer) and the count, over tiles for the
-// sweep, with a grid-wide barrier between the phases. The count bins per
-// block in shared memory and adds them to counts[t] with integer atomics,
-// exact in any order.
+// What the design does about it. A block is one warp and holds up to 32
+// tiles, one per lane. The warp loads its tiles coalesced from device memory
+// into shared memory, with the roll fused into the load (row (r + sr) mod H
+// and column (c + sc) mod W by one compare and subtract each). The staging
+// puts lane t's cells in bank t, so the sweep's accesses never conflict.
+// Cells are staged as int8 where the labels fit (S <= 127), so every tile of
+// a 3200 x 3200 lattice is resident at once. Each lane then sweeps its own
+// tile in shared memory: it draws kBatch proposals at a time (Philox inline,
+// round keys in registers, one wide multiply per half) so that their rounds
+// overlap, decodes them with the remainders by the interior and the row
+// width as multiplies by a precomputed reciprocal (exact for 32-bit
+// operands), and applies them in order with selects, reading the dominance
+// rates only for an interaction. The swept tiles go back to device memory
+// coalesced, a word's cells in one store. K2 is a cooperative launch of
+// persistent one-warp blocks that walk over all groups of tiles; each step
+// is one phase (load with the roll, sweep, count, store into the ping-pong
+// buffer) and one grid barrier before the next step reads what this one
+// wrote. The count is taken from the staged tiles: for each label the lanes
+// count the matching cells of their words four at a time (__vcmpeq4) and
+// the warp sums them, into the block's bins, which the block adds to
+// counts[t] once per step with integer atomics, exact in any order.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -43,6 +57,38 @@ namespace cg = cooperative_groups;
 
 namespace escg {
 
+constexpr int kWarp = 32;
+constexpr unsigned kFull = 0xffffffffu;
+// the dynamic shared memory a block may use: the card's 227 KB a block
+// less the direction table
+constexpr size_t kMaxSmem = 232448 - 16 * sizeof(int);
+// proposals a lane draws ahead of applying them, so that their Philox
+// rounds overlap one another
+constexpr int kBatch = 8;
+
+// Bits 64..95 of the product of a 64-bit a and a 32-bit b: two wide
+// multiplies (the sum cannot carry past 64 bits).
+__device__ __forceinline__ uint32_t mulhi_64x32(uint64_t a, uint32_t b) {
+  const uint64_t lo = (uint64_t)(uint32_t)a * b;
+  return (uint32_t)(((uint64_t)(uint32_t)(a >> 32) * b + (lo >> 32)) >> 32);
+}
+
+// n / d and n % d for a divisor fixed for the launch (Lemire, Kaser and
+// Kurz, "Faster remainder by direct computation", 2019): with
+// m = ceil(2^64 / d) both are exact for every 32-bit n and d.
+struct Divisor {
+  uint64_t m;  // 0 for d = 1
+  uint32_t d;
+  __host__ __device__ explicit Divisor(uint32_t d_ = 1)
+      : m(d_ == 1 ? 0 : ~0ull / d_ + 1), d(d_) {}
+  __device__ __forceinline__ uint32_t div(uint32_t n) const {
+    return d == 1 ? n : mulhi_64x32(m, n);
+  }
+  __device__ __forceinline__ uint32_t mod(uint32_t n) const {
+    return mulhi_64x32(m * n, d);
+  }
+};
+
 struct Rule {
   float t_eps;     // migration below this action draw
   float t_eps_mu;  // interaction below this one, reproduction above
@@ -50,186 +96,399 @@ struct Rule {
   int n_dom;       // species + 1: side of the padded dominance matrix
 };
 
-__device__ __forceinline__ uint4 philox4x32_10(uint32_t c0, uint32_t c1,
-                                               uint32_t c2, uint32_t c3,
-                                               uint32_t k0, uint32_t k1) {
+// Where the tiles lie and how a block stages them.
+struct Geometry {
+  int H, W, th, tw;
+  int lgw;        // tiles per row of this lattice
+  int n_tiles;
+  int P;          // tiles per block (one per lane)
+  int G;          // 32-bit staging words per tile row
+  Divisor by_G, by_P, by_lgw, interior, iw;
+};
+
+// What a sweep needs besides the tile.
+struct Sweep {
+  int k;                // proposals per tile
+  uint32_t gw, off0, off1;
+  Rule rule;
+  const float* dom;     // (n_dom, n_dom) float32
+  const int* dirs;      // (8, 2) int32
+};
+
+struct PhiloxKeys {
+  uint32_t k0[10], k1[10];
+};
+
+__device__ __forceinline__ PhiloxKeys round_keys(uint32_t s0, uint32_t s1) {
+  PhiloxKeys k;
 #pragma unroll
   for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k0 += 0x9E3779B9u;
-      k1 += 0xBB67AE85u;
-    }
-    const uint32_t hi0 = __umulhi(0xD2511F53u, c0);
-    const uint32_t lo0 = 0xD2511F53u * c0;
-    const uint32_t hi1 = __umulhi(0xCD9E8D57u, c2);
-    const uint32_t lo1 = 0xCD9E8D57u * c2;
-    c0 = hi1 ^ c1 ^ k0;
-    c1 = lo1;
-    c2 = hi0 ^ c3 ^ k1;
-    c3 = lo0;
+    k.k0[r] = s0 + (uint32_t)r * 0x9E3779B9u;
+    k.k1[r] = s1 + (uint32_t)r * 0xBB67AE85u;
+  }
+  return k;
+}
+
+// Philox-4x32-10 of the counter (c0, c1, 0, 0).
+__device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1,
+                                        const PhiloxKeys& k) {
+  uint32_t c2 = 0u, c3 = 0u;
+#pragma unroll
+  for (int r = 0; r < 10; ++r) {
+    const uint64_t p0 = (uint64_t)0xD2511F53u * c0;
+    const uint64_t p1 = (uint64_t)0xCD9E8D57u * c2;
+    c0 = (uint32_t)(p1 >> 32) ^ c1 ^ k.k0[r];
+    c1 = (uint32_t)p1;
+    c2 = (uint32_t)(p0 >> 32) ^ c3 ^ k.k1[r];
+    c3 = (uint32_t)p0;
   }
   return make_uint4(c0, c1, c2, c3);
 }
 
-// The K proposals of one tile, in order, on the lattice g of row length W.
-// (r0, c0) is the tile's top-left cell.
-template <typename T>
-__device__ void sweep_tile(T* g, int W, int r0, int c0, int th, int tw,
-                           uint32_t tile_id, int k, uint32_t round,
-                           uint32_t seed0, uint32_t seed1,
-                           const float* __restrict__ dom,
-                           const int* __restrict__ dirs, Rule rule) {
-  const int iw = tw - 2;
-  const uint32_t interior = (uint32_t)((th - 2) * iw);
-  const uint32_t base = tile_id * (uint32_t)k;
-  for (int j = 0; j < k; ++j) {
-    const uint4 x = philox4x32_10(base + (uint32_t)j, round, 0u, 0u, seed0,
-                                  seed1);
-    const int cell = (int)(x.x % interior);
-    const int dirn = (int)(x.y % (uint32_t)rule.nbhd);
-    const float ua = (float)(x.z >> 8) * 0x1p-24f;
-    const float ud = (float)(x.w >> 8) * 0x1p-24f;
-    const int r = r0 + 1 + cell / iw;
-    const int c = c0 + 1 + cell % iw;
-    const int nr = r + dirs[2 * dirn];
-    const int nc = c + dirs[2 * dirn + 1];
-    T* ps = g + (size_t)r * W + c;
-    T* pn = g + (size_t)nr * W + nc;
-    const int s = (int)*ps;
-    const int n = (int)*pn;
-    if (s == n) continue;  // same species: the pair is left as it is
-    const bool migrate = ua < rule.t_eps;
-    const bool interact = (ua >= rule.t_eps) && (ua < rule.t_eps_mu);
-    const bool reproduce = ua >= rule.t_eps_mu;
-    const float p1 = dom[s * rule.n_dom + n];
-    const float p2 = dom[n * rule.n_dom + s];
-    const bool kill_n = interact && (ud < p1);
-    const bool kill_s = interact && !kill_n && (ud < p1 + p2);
-    const bool rep_to_n = reproduce && (n == 0);
-    const bool rep_to_s = reproduce && (s == 0);
-    const int new_s = migrate ? n : (kill_s ? 0 : (rep_to_s ? n : s));
-    const int new_n = migrate ? s : (kill_n ? 0 : (rep_to_n ? s : n));
-    *ps = (T)new_s;
-    *pn = (T)new_n;
+// The staging of a block's P tiles in shared memory, cells of type S packed
+// kPer to a 32-bit word: word (r * G + c / kPer) * P + t holds cells
+// c / kPer * kPer .. + kPer - 1 of row r of tile t, so tile t lies in bank
+// t % 32 whatever cell it touches. Cells past a row's end are padding (-1).
+template <typename S>
+struct Staging {
+  static constexpr int kPer = 4 / (int)sizeof(S);
+  static constexpr int kBits = 8 * (int)sizeof(S);
+  static constexpr int kShift = kPer == 4 ? 2 : (kPer == 2 ? 1 : 0);
+  // index of cell (r, c) of tile t among the block's S-typed cells
+  static __device__ __forceinline__ int at(const Geometry& g, int t, int r,
+                                           int c) {
+    return ((r * g.G + (c >> kShift)) * g.P + t) * kPer + (c & (kPer - 1));
+  }
+  // label v in every cell of a word
+  static __device__ __forceinline__ uint32_t splat(int v) {
+    return (uint32_t)v * (kPer == 4 ? 0x01010101u
+                                    : (kPer == 2 ? 0x00010001u : 1u));
+  }
+  // how many cells of `word` hold the label splatted in `pattern`
+  static __device__ __forceinline__ uint32_t equal(uint32_t word,
+                                                   uint32_t pattern) {
+    if (kPer == 4) return __popc(__vcmpeq4(word, pattern)) >> 3;
+    if (kPer == 2) return __popc(__vcmpeq2(word, pattern)) >> 4;
+    return word == pattern ? 1u : 0u;
+  }
+};
+
+// kPer cells of a lattice row, stored with one access where they are
+// aligned to their size.
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Cells {
+  T v[N];
+};
+
+// Lane t's tile of group `group`: its index (or -1 past the last tile), and
+// the row and column of its first cell in the lattice.
+__device__ __forceinline__ int group_tile(const Geometry& g, int group,
+                                          int lane, int* r0, int* c0) {
+  const int tile = group * g.P + lane;
+  if (lane >= g.P || tile >= g.n_tiles) {
+    *r0 = *c0 = 0;
+    return -1;
+  }
+  const int ti = (int)g.by_lgw.div((uint32_t)tile);
+  *r0 = ti * g.th;
+  *c0 = (tile - ti * g.lgw) * g.tw;
+  return tile;
+}
+
+// Stage the group's tiles from `src` rolled by (-sr, -sc): cell (r, c) of a
+// tile at (r0, c0) is src[(r0 + r + sr) mod H][(c0 + c + sc) mod W]. Lanes
+// walk each tile row kPer cells at a time, tile after tile, so a warp reads
+// runs of consecutive cells.
+template <typename T, typename S>
+__device__ void load_group(const T* src, uint32_t* words, const Geometry& g,
+                           int my_tile, int my_r0, int my_c0, int sr,
+                           int sc) {
+  using St = Staging<S>;
+  const int lane = threadIdx.x;
+  const int row_words = g.P * g.G;
+  for (int u0 = 0; u0 < row_words; u0 += kWarp) {
+    const int u = u0 + lane;
+    const int t = (int)g.by_G.div((uint32_t)u);
+    const int gi = u - t * g.G;
+    const int src_lane = t < kWarp ? t : 0;
+    const int tile = __shfl_sync(kFull, my_tile, src_lane);
+    const int r0 = __shfl_sync(kFull, my_r0, src_lane);
+    const int c0 = __shfl_sync(kFull, my_c0, src_lane);
+    if (u >= row_words || tile < 0) continue;
+    int cols[St::kPer];
+#pragma unroll
+    for (int b = 0; b < St::kPer; ++b) {
+      const int c = c0 + gi * St::kPer + b + sc;
+      cols[b] = c < g.W ? c : c - g.W;
+    }
+#pragma unroll 8
+    for (int r = 0; r < g.th; ++r) {
+      int row = r0 + r + sr;
+      row = row < g.H ? row : row - g.H;
+      const T* line = src + (size_t)row * g.W;
+      uint32_t word = 0;
+#pragma unroll
+      for (int b = 0; b < St::kPer; ++b) {
+        const int v = gi * St::kPer + b < g.tw ? (int)line[cols[b]] : -1;
+        word |= ((uint32_t)v & (0xffffffffu >> (32 - St::kBits)))
+                << (b * St::kBits);
+      }
+      words[(r * g.G + gi) * g.P + t] = word;
+    }
   }
 }
 
-// K1: one round over an already rolled lattice, one thread per tile; each
-// thread first copies its tile from `in` to `out`, then sweeps it in `out`.
-template <typename T>
-__global__ void tile_round_kernel(const T* __restrict__ in, T* out, int H,
-                                  int W, int th, int tw, int k, uint32_t gw,
-                                  uint32_t off0, uint32_t off1,
-                                  uint32_t seed0, uint32_t seed1,
-                                  uint32_t round,
-                                  const float* __restrict__ dom,
-                                  const int* __restrict__ dirs, Rule rule) {
-  const int lgw = W / tw;
-  const int n_tiles = (H / th) * lgw;
-  const int tile = blockIdx.x * blockDim.x + threadIdx.x;
-  if (tile >= n_tiles) return;
-  const int ti = tile / lgw;
-  const int tj = tile % lgw;
-  const int r0 = ti * th;
-  const int c0 = tj * tw;
-  for (int r = r0; r < r0 + th; ++r)
-    for (int c = c0; c < c0 + tw; ++c)
-      out[(size_t)r * W + c] = in[(size_t)r * W + c];
-  const uint32_t tile_id = (off0 + (uint32_t)ti) * gw + (off1 + (uint32_t)tj);
-  sweep_tile(out, W, r0, c0, th, tw, tile_id, k, round, seed0, seed1, dom,
-             dirs, rule);
+// Write the group's staged tiles to `dst` in place (no roll), a word's
+// cells with one store where the tile width is a multiple of kPer.
+template <typename T, typename S>
+__device__ void store_group(T* dst, const uint32_t* words, const Geometry& g,
+                            int my_tile, int my_r0, int my_c0) {
+  using St = Staging<S>;
+  using Run = Cells<T, St::kPer>;
+  const int lane = threadIdx.x;
+  const int row_words = g.P * g.G;
+  const bool whole = g.tw % St::kPer == 0;
+  for (int u0 = 0; u0 < row_words; u0 += kWarp) {
+    const int u = u0 + lane;
+    const int t = (int)g.by_G.div((uint32_t)u);
+    const int gi = u - t * g.G;
+    const int src_lane = t < kWarp ? t : 0;
+    const int tile = __shfl_sync(kFull, my_tile, src_lane);
+    const int r0 = __shfl_sync(kFull, my_r0, src_lane);
+    const int c0 = __shfl_sync(kFull, my_c0, src_lane);
+    if (u >= row_words || tile < 0) continue;
+#pragma unroll 8
+    for (int r = 0; r < g.th; ++r) {
+      const uint32_t word = words[(r * g.G + gi) * g.P + t];
+      T* line = dst + (size_t)(r0 + r) * g.W + c0 + gi * St::kPer;
+      Run run;
+#pragma unroll
+      for (int b = 0; b < St::kPer; ++b)
+        run.v[b] = (T)(S)(word >> (b * St::kBits));
+      if (whole) {
+        *reinterpret_cast<Run*>(line) = run;
+      } else {
+#pragma unroll
+        for (int b = 0; b < St::kPer; ++b)
+          if (gi * St::kPer + b < g.tw) line[b] = run.v[b];
+      }
+    }
+  }
+}
+
+// Lane t applies its tile's K proposals in order to the staged cells. It
+// draws kBatch proposals at a time and decodes them into cell indices and
+// uniforms before applying them; the dominance rates are read only when a
+// proposal of the warp interacts.
+template <typename S>
+__device__ void sweep_tile(uint32_t* words, const Geometry& g,
+                           const Sweep& sw, const int* dirs, int tile,
+                           uint32_t round, uint32_t seed0, uint32_t seed1) {
+  using St = Staging<S>;
+  const int t = threadIdx.x;
+  S* cells = reinterpret_cast<S*>(words);
+  const int ti = (int)g.by_lgw.div((uint32_t)tile);
+  const int tj = tile - ti * g.lgw;
+  const uint32_t tile_id =
+      (sw.off0 + (uint32_t)ti) * sw.gw + (sw.off1 + (uint32_t)tj);
+  const uint32_t base = tile_id * (uint32_t)sw.k;
+  const uint32_t iw = g.iw.d;
+  const uint32_t dir_mask = (uint32_t)sw.rule.nbhd - 1u;  // nbhd is 4 or 8
+  const int n_dom = sw.rule.n_dom;
+  const Rule rule = sw.rule;
+  const PhiloxKeys keys = round_keys(seed0, seed1);
+  for (int j0 = 0; j0 < sw.k; j0 += kBatch) {
+    int at_s[kBatch], at_n[kBatch];
+    float ua[kBatch], ud[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const uint4 x = philox(base + (uint32_t)(j0 + u), round, keys);
+      const uint32_t cell = g.interior.mod(x.x);
+      const uint32_t ir = g.iw.div(cell);
+      const int r = 1 + (int)ir;
+      const int c = 1 + (int)(cell - ir * iw);
+      const int dirn = (int)(x.y & dir_mask);
+      at_s[u] = St::at(g, t, r, c);
+      at_n[u] = St::at(g, t, r + dirs[2 * dirn], c + dirs[2 * dirn + 1]);
+      ua[u] = (float)(x.z >> 8) * 0x1p-24f;
+      ud[u] = (float)(x.w >> 8) * 0x1p-24f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      if (j0 + u >= sw.k) break;
+      const int s = (int)cells[at_s[u]];
+      const int n = (int)cells[at_n[u]];
+      const bool migrate = ua[u] < rule.t_eps;
+      const bool interact = (ua[u] >= rule.t_eps) && (ua[u] < rule.t_eps_mu);
+      const bool reproduce = ua[u] >= rule.t_eps_mu;
+      float p1 = 0.f, p2 = 0.f;
+      if (interact) {
+        p1 = __ldg(&sw.dom[s * n_dom + n]);
+        p2 = __ldg(&sw.dom[n * n_dom + s]);
+      }
+      const bool kill_n = interact && (ud[u] < p1);
+      const bool kill_s = interact && !kill_n && (ud[u] < p1 + p2);
+      const bool rep_to_n = reproduce && (n == 0);
+      const bool rep_to_s = reproduce && (s == 0);
+      int new_s = migrate ? n : (kill_s ? 0 : (rep_to_s ? n : s));
+      int new_n = migrate ? s : (kill_n ? 0 : (rep_to_n ? s : n));
+      // a pair of one species is left as it is
+      new_s = s == n ? s : new_s;
+      new_n = s == n ? n : new_n;
+      cells[at_s[u]] = (S)new_s;
+      cells[at_n[u]] = (S)new_n;
+    }
+  }
+}
+
+// Add the labels of the group's staged tiles to `bins` (one warp's own):
+// for each label, the lanes count the cells that hold it in their words and
+// the warp sums the counts.
+template <typename S>
+__device__ void count_group(const uint32_t* words, const Geometry& g,
+                            int group, int n_dom, int* bins) {
+  using St = Staging<S>;
+  const int lane = threadIdx.x;
+  const int total = g.th * g.G * g.P;
+  const bool full = (group + 1) * g.P <= g.n_tiles;
+  for (int v = 0; v < n_dom; ++v) {
+    const uint32_t pattern = St::splat(v);
+    uint32_t n = 0;
+    for (int w = lane; w < total; w += kWarp)
+      if (full || group * g.P + (int)g.by_P.mod((uint32_t)w) < g.n_tiles)
+        n += St::equal(words[w], pattern);
+    n = __reduce_add_sync(kFull, n);
+    if (lane == 0) bins[v] += (int)n;
+  }
+}
+
+__device__ __forceinline__ void load_dirs(const int* dirs, int* sdirs) {
+  if (threadIdx.x < 16) sdirs[threadIdx.x] = dirs[threadIdx.x];
+}
+
+// K1: one round, one block per group of P tiles, read from `in` rolled by
+// (-sr, -sc) and written to `out`.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kWarp)
+    tile_round_kernel(const T* in, T* out, Geometry g, Sweep sw, int sr,
+                      int sc, uint32_t seed0, uint32_t seed1,
+                      uint32_t round) {
+  extern __shared__ uint32_t words[];
+  __shared__ int sdirs[16];
+  load_dirs(sw.dirs, sdirs);
+  int r0, c0;
+  const int tile = group_tile(g, blockIdx.x, threadIdx.x, &r0, &c0);
+  load_group<T, S>(in, words, g, tile, r0, c0, sr, sc);
+  __syncwarp();
+  if (tile >= 0) sweep_tile<S>(words, g, sw, sdirs, tile, round, seed0, seed1);
+  __syncwarp();
+  store_group<T, S>(out, words, g, tile, r0, c0);
 }
 
 // K2: n_steps Monte-Carlo steps in one cooperative launch. Step t reads the
-// previous step's lattice (`in` for t = 0), writes its rolled copy into the
-// ping-pong buffer that makes the last step land in `out`, sweeps it and
-// counts it into counts[t].
-template <typename T>
-__global__ void tile_rounds_kernel(const T* in, T* out,
-                                   T* scratch, int H, int W, int th, int tw,
-                                   int k, uint32_t gw, uint32_t off0,
-                                   uint32_t off1, const int64_t* seeds,
-                                   const int64_t* shifts, int n_steps,
-                                   const float* __restrict__ dom,
-                                   const int* __restrict__ dirs, Rule rule,
-                                   int* counts) {
+// previous step's lattice (`in` for t = 0) rolled by -shifts[t], sweeps it
+// tile group by tile group and writes it to the ping-pong buffer that makes
+// the last step land in `out`; counts[t] (zeroed before the launch) gets its
+// species counts. One grid barrier separates a step's writes from the next
+// step's reads; the buffer a step writes was last read two steps before.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kWarp)
+    tile_rounds_kernel(const T* in, T* out, T* scratch, Geometry g, Sweep sw,
+                       const int64_t* seeds, const int64_t* shifts,
+                       int n_steps, int* counts) {
   cg::grid_group grid = cg::this_grid();
-  extern __shared__ int bins[];
-  const int64_t n_cells = (int64_t)H * W;
-  const int64_t tid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  const int lgw = W / tw;
-  const int n_tiles = (H / th) * lgw;
-  const int n_counts = rule.n_dom;
-
-  for (int64_t i = tid; i < (int64_t)n_steps * n_counts; i += stride)
-    counts[i] = 0;
+  extern __shared__ uint32_t words[];
+  int* bins = reinterpret_cast<int*>(words + g.th * g.G * g.P);
+  __shared__ int sdirs[16];
+  load_dirs(sw.dirs, sdirs);
+  const int n_dom = sw.rule.n_dom;
+  for (int b = threadIdx.x; b < n_dom; b += kWarp) bins[b] = 0;
+  const int n_groups = (g.n_tiles + g.P - 1) / g.P;
+  __syncwarp();
 
   const T* src = in;
   for (int t = 0; t < n_steps; ++t) {
     T* dst = ((n_steps - 1 - t) % 2 == 0) ? out : scratch;
-    const int sr = (int)(((shifts[2 * t] % H) + H) % H);
-    const int sc = (int)(((shifts[2 * t + 1] % W) + W) % W);
-    for (int64_t i = tid; i < n_cells; i += stride) {
-      const int r = (int)(i / W);
-      const int c = (int)(i % W);
-      const int rr = (r + sr) < H ? r + sr : r + sr - H;
-      const int cc = (c + sc) < W ? c + sc : c + sc - W;
-      dst[i] = src[(size_t)rr * W + cc];
-    }
-    grid.sync();
-
+    const int sr = (int)(((shifts[2 * t] % g.H) + g.H) % g.H);
+    const int sc = (int)(((shifts[2 * t + 1] % g.W) + g.W) % g.W);
     const uint32_t seed0 = (uint32_t)seeds[2 * t];
     const uint32_t seed1 = (uint32_t)seeds[2 * t + 1];
-    for (int64_t tile = tid; tile < n_tiles; tile += stride) {
-      const int ti = (int)(tile / lgw);
-      const int tj = (int)(tile % lgw);
-      const uint32_t tile_id =
-          (off0 + (uint32_t)ti) * gw + (off1 + (uint32_t)tj);
-      sweep_tile(dst, W, ti * th, tj * tw, th, tw, tile_id, k, 0u, seed0,
-                 seed1, dom, dirs, rule);
+    for (int group = blockIdx.x; group < n_groups; group += gridDim.x) {
+      int r0, c0;
+      const int tile = group_tile(g, group, threadIdx.x, &r0, &c0);
+      load_group<T, S>(src, words, g, tile, r0, c0, sr, sc);
+      __syncwarp();
+      if (tile >= 0) sweep_tile<S>(words, g, sw, sdirs, tile, 0u, seed0, seed1);
+      __syncwarp();
+      count_group<S>(words, g, group, n_dom, bins);
+      store_group<T, S>(dst, words, g, tile, r0, c0);
+      __syncwarp();
     }
-    grid.sync();
-
-    for (int b = threadIdx.x; b < n_counts; b += blockDim.x) bins[b] = 0;
-    __syncthreads();
-    for (int64_t i = tid; i < n_cells; i += stride) {
-      const int v = (int)dst[i];
-      if (v >= 0 && v < n_counts) atomicAdd(&bins[v], 1);
+    for (int b = threadIdx.x; b < n_dom; b += kWarp) {
+      if (bins[b]) atomicAdd(&counts[t * n_dom + b], bins[b]);
+      bins[b] = 0;
     }
-    __syncthreads();
-    for (int b = threadIdx.x; b < n_counts; b += blockDim.x)
-      if (bins[b]) atomicAdd(&counts[t * n_counts + b], bins[b]);
-    __syncthreads();
+    __syncwarp();
+    if (t + 1 < n_steps) grid.sync();
     src = dst;
   }
 }
 
-constexpr int kRoundThreads = 128;
-constexpr int kRoundsThreads = 256;
+__host__ inline Geometry make_geometry(int H, int W, int th, int tw,
+                                       int stage_bytes, int P) {
+  Geometry g;
+  g.H = H;
+  g.W = W;
+  g.th = th;
+  g.tw = tw;
+  g.lgw = W / tw;
+  g.n_tiles = (H / th) * g.lgw;
+  g.P = P;
+  g.G = (tw * stage_bytes + 3) / 4;
+  g.by_G = Divisor((uint32_t)g.G);
+  g.by_P = Divisor((uint32_t)P);
+  g.by_lgw = Divisor((uint32_t)g.lgw);
+  g.interior = Divisor((uint32_t)((th - 2) * (tw - 2)));
+  g.iw = Divisor((uint32_t)(tw - 2));
+  return g;
+}
 
-template <typename T>
-int launch_round(void* out, const void* in, int H, int W, int th, int tw,
-                 int k, uint32_t gw, uint32_t off0, uint32_t off1,
-                 uint32_t seed0, uint32_t seed1, uint32_t round,
-                 const float* dom, const int* dirs, Rule rule,
-                 cudaStream_t stream) {
-  const int n_tiles = (H / th) * (W / tw);
-  const int blocks = (n_tiles + kRoundThreads - 1) / kRoundThreads;
-  tile_round_kernel<T><<<blocks, kRoundThreads, 0, stream>>>(
-      (const T*)in, (T*)out, H, W, th, tw, k, gw, off0, off1, seed0, seed1,
-      round, dom, dirs, rule);
+// Dynamic shared memory of a block: the staging, and K2's bins.
+__host__ inline size_t block_smem(const Geometry& g, int n_dom) {
+  return ((size_t)g.th * g.G * g.P + (size_t)n_dom) * sizeof(int);
+}
+
+// Check the staging fits and allow the kernel that much shared memory.
+__host__ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
+template <typename T, typename S>
+int launch_round(void* out, const void* in, const Geometry& g,
+                 const Sweep& sw, int sr, int sc, uint32_t seed0,
+                 uint32_t seed1, uint32_t round, cudaStream_t stream) {
+  const size_t smem = block_smem(g, sw.rule.n_dom);
+  cudaError_t err = allow_smem((const void*)tile_round_kernel<T, S>, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int n_groups = (g.n_tiles + g.P - 1) / g.P;
+  tile_round_kernel<T, S><<<n_groups, kWarp, smem, stream>>>(
+      (const T*)in, (T*)out, g, sw, sr, sc, seed0, seed1, round);
   return (int)cudaGetLastError();
 }
 
-// The largest grid of kRoundsThreads-thread blocks that can be resident at
-// once, which a cooperative launch may not exceed; 0 if none fits.
-template <typename T>
-int cooperative_blocks(int n_counts, int device) {
+// The largest grid of one-warp blocks that can be resident at once, which
+// a cooperative launch may not exceed; 0 if none fits.
+template <typename T, typename S>
+int cooperative_blocks(const Geometry& g, int n_dom, int device) {
+  const size_t smem = block_smem(g, n_dom);
+  const void* kernel = (const void*)tile_rounds_kernel<T, S>;
+  if (allow_smem(kernel, smem) != cudaSuccess) return 0;
   int per_sm = 0, sms = 0;
-  const size_t smem = (size_t)n_counts * sizeof(int);
   if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, tile_rounds_kernel<T>, kRoundsThreads, smem) != cudaSuccess)
+          &per_sm, tile_rounds_kernel<T, S>, kWarp, smem) != cudaSuccess)
     return 0;
   if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device) !=
       cudaSuccess)
@@ -237,69 +496,82 @@ int cooperative_blocks(int n_counts, int device) {
   return per_sm * sms;
 }
 
-template <typename T>
-int launch_rounds(void* out, void* scratch, const void* in, int H, int W,
-                  int th, int tw, int k, uint32_t gw, uint32_t off0,
-                  uint32_t off1, const int64_t* seeds, const int64_t* shifts,
-                  int n_steps, const float* dom, const int* dirs, Rule rule,
-                  int* counts, int device, cudaStream_t stream) {
+template <typename T, typename S>
+int launch_rounds(void* out, void* scratch, const void* in,
+                  const Geometry& g, const Sweep& sw, const int64_t* seeds,
+                  const int64_t* shifts, int n_steps, int* counts,
+                  int device, cudaStream_t stream) {
   int coop = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
   if (err != cudaSuccess) return (int)err;
   if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int max_blocks = cooperative_blocks<T>(rule.n_dom, device);
+  const int max_blocks = cooperative_blocks<T, S>(g, sw.rule.n_dom, device);
   if (max_blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int64_t work = (int64_t)H * W;
-  int64_t want = (work + kRoundsThreads - 1) / kRoundsThreads;
-  const int blocks = (int)(want < max_blocks ? want : max_blocks);
+  err = cudaMemsetAsync(counts, 0,
+                        (size_t)n_steps * sw.rule.n_dom * sizeof(int),
+                        stream);
+  if (err != cudaSuccess) return (int)err;
+  const int n_groups = (g.n_tiles + g.P - 1) / g.P;
+  const int blocks = n_groups < max_blocks ? n_groups : max_blocks;
   const T* in_t = (const T*)in;
   T* out_t = (T*)out;
   T* scratch_t = (T*)scratch;
-  void* args[] = {&in_t, &out_t, &scratch_t, &H,      &W,     &th,
-                  &tw,   &k,     &gw,        &off0,   &off1,  &seeds,
-                  &shifts, &n_steps, &dom,   &dirs,   &rule,  &counts};
-  err = cudaLaunchCooperativeKernel((const void*)tile_rounds_kernel<T>,
-                                    dim3(blocks), dim3(kRoundsThreads), args,
-                                    (size_t)rule.n_dom * sizeof(int), stream);
+  Geometry g_arg = g;
+  Sweep sw_arg = sw;
+  void* args[] = {&in_t,  &out_t,   &scratch_t, &g_arg,  &sw_arg,
+                  &seeds, &shifts, &n_steps,   &counts};
+  err = cudaLaunchCooperativeKernel((const void*)tile_rounds_kernel<T, S>,
+                                    dim3(blocks), dim3(kWarp), args,
+                                    block_smem(g, sw.rule.n_dom), stream);
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
+
+// The (lattice, staging) type pairs: int8 staging for any lattice whose
+// labels fit it, else the lattice's own type.
+#define ESCG_DISPATCH(cell_bytes, stage_bytes, CALL)               \
+  switch ((cell_bytes) * 10 + (stage_bytes)) {                     \
+    case 11: { using T = int8_t; using S = int8_t; return CALL; }   \
+    case 21: { using T = int16_t; using S = int8_t; return CALL; }  \
+    case 41: { using T = int32_t; using S = int8_t; return CALL; }  \
+    case 22: { using T = int16_t; using S = int16_t; return CALL; } \
+    case 44: { using T = int32_t; using S = int32_t; return CALL; } \
+  }
 
 }  // namespace escg
 
 extern "C" {
 
-// cell_bytes selects the lattice type: 1 = int8, 2 = int16, 4 = int32.
-// Every entry point returns a cudaError_t (0 = launched).
-int escg_tile_round_fused(int cell_bytes, void* out, const void* in, int H,
-                          int W, int th, int tw, int k, uint32_t gw,
+// cell_bytes selects the lattice type (1 = int8, 2 = int16, 4 = int32) and
+// stage_bytes the type its cells are staged in (1, or cell_bytes);
+// tiles_per_block is how many tiles a block stages (1..32). Every entry
+// point returns a cudaError_t (0 = launched).
+int escg_tile_round_fused(int cell_bytes, int stage_bytes,
+                          int tiles_per_block, void* out, const void* in,
+                          int H, int W, int th, int tw, int k, uint32_t gw,
                           uint32_t off0, uint32_t off1, uint32_t seed0,
-                          uint32_t seed1, uint32_t round, const float* dom,
-                          int n_dom, const int* dirs, int nbhd, float t_eps,
+                          uint32_t seed1, uint32_t round, int shift0,
+                          int shift1, const float* dom, int n_dom,
+                          const int* dirs, int nbhd, float t_eps,
                           float t_eps_mu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const escg::Rule rule{t_eps, t_eps_mu, nbhd, n_dom};
+  const escg::Geometry g =
+      escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
+  const escg::Sweep sw{k, gw, off0, off1,
+                       escg::Rule{t_eps, t_eps_mu, nbhd, n_dom}, dom, dirs};
+  const int sr = ((shift0 % H) + H) % H;
+  const int sc = ((shift1 % W) + W) % W;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cell_bytes) {
-    case 1:
-      return escg::launch_round<int8_t>(out, in, H, W, th, tw, k, gw, off0,
-                                        off1, seed0, seed1, round, dom, dirs,
-                                        rule, s);
-    case 2:
-      return escg::launch_round<int16_t>(out, in, H, W, th, tw, k, gw, off0,
-                                         off1, seed0, seed1, round, dom, dirs,
-                                         rule, s);
-    case 4:
-      return escg::launch_round<int32_t>(out, in, H, W, th, tw, k, gw, off0,
-                                         off1, seed0, seed1, round, dom, dirs,
-                                         rule, s);
-  }
+  ESCG_DISPATCH(cell_bytes, stage_bytes,
+                (escg::launch_round<T, S>(out, in, g, sw, sr, sc,
+                                          seed0, seed1, round, s)));
   return (int)cudaErrorInvalidValue;
 }
 
-int escg_tile_rounds_fused(int cell_bytes, void* out, void* scratch,
+int escg_tile_rounds_fused(int cell_bytes, int stage_bytes,
+                           int tiles_per_block, void* out, void* scratch,
                            const void* in, int H, int W, int th, int tw,
                            int k, uint32_t gw, uint32_t off0, uint32_t off1,
                            const int64_t* seeds, const int64_t* shifts,
@@ -309,37 +581,28 @@ int escg_tile_rounds_fused(int cell_bytes, void* out, void* scratch,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const escg::Rule rule{t_eps, t_eps_mu, nbhd, n_dom};
+  const escg::Geometry g =
+      escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
+  const escg::Sweep sw{k, gw, off0, off1,
+                       escg::Rule{t_eps, t_eps_mu, nbhd, n_dom}, dom, dirs};
   cudaStream_t s = (cudaStream_t)stream;
-  switch (cell_bytes) {
-    case 1:
-      return escg::launch_rounds<int8_t>(out, scratch, in, H, W, th, tw, k,
-                                         gw, off0, off1, seeds, shifts,
-                                         n_steps, dom, dirs, rule, counts,
-                                         device, s);
-    case 2:
-      return escg::launch_rounds<int16_t>(out, scratch, in, H, W, th, tw, k,
-                                          gw, off0, off1, seeds, shifts,
-                                          n_steps, dom, dirs, rule, counts,
-                                          device, s);
-    case 4:
-      return escg::launch_rounds<int32_t>(out, scratch, in, H, W, th, tw, k,
-                                          gw, off0, off1, seeds, shifts,
-                                          n_steps, dom, dirs, rule, counts,
-                                          device, s);
-  }
+  ESCG_DISPATCH(cell_bytes, stage_bytes,
+                (escg::launch_rounds<T, S>(out, scratch, in, g, sw, seeds,
+                                           shifts, n_steps, counts, device,
+                                           s)));
   return (int)cudaErrorInvalidValue;
 }
 
-// The most blocks a K2 launch may use on `device`, 0 if the cooperative
-// launch cannot be made.
-int escg_tile_rounds_fused_blocks(int cell_bytes, int n_dom, int device) {
+// The most blocks a K2 launch may use on `device` for this lattice type,
+// staging and tile, 0 if the cooperative launch cannot be made.
+int escg_tile_rounds_fused_blocks(int cell_bytes, int stage_bytes,
+                                  int tiles_per_block, int th, int tw,
+                                  int n_dom, int device) {
   if (cudaSetDevice(device) != cudaSuccess) return 0;
-  switch (cell_bytes) {
-    case 1: return escg::cooperative_blocks<int8_t>(n_dom, device);
-    case 2: return escg::cooperative_blocks<int16_t>(n_dom, device);
-    case 4: return escg::cooperative_blocks<int32_t>(n_dom, device);
-  }
+  const escg::Geometry g =
+      escg::make_geometry(th, tw, th, tw, stage_bytes, tiles_per_block);
+  ESCG_DISPATCH(cell_bytes, stage_bytes,
+                (escg::cooperative_blocks<T, S>(g, n_dom, device)));
   return 0;
 }
 

@@ -3,8 +3,9 @@
 Two hand-written CUDA kernels (``csrc/escg_update_fused.cu``) and their
 plain PyTorch versions:
 
-* ``escg_tile_round_fused`` (K1): one round over an already rolled
-  lattice. Tile (i, j) derives its K proposals from Philox-4x32-10 with
+* ``escg_tile_round_fused`` (K1): one round over the lattice rolled by
+  ``-shift`` (default none; the roll is fused into the kernel's tile
+  load). Tile (i, j) derives its K proposals from Philox-4x32-10 with
   counter (global tile id * K + j, round, 0, 0) and key = two seed words,
   and applies them in order to its interior.
 * ``escg_tile_rounds_fused`` (K2, the ``k_mcs`` megakernel): K MCS in one
@@ -14,6 +15,10 @@ plain PyTorch versions:
 
 ``tile_offset``/``grid_tiles_w`` key the counters by global tile identity
 when the grid is one shard of a larger lattice (DESIGN.md §6).
+
+On the card a block stages up to 32 tiles in shared memory, as int8 where
+the labels 0..S fit it (S <= 127) and else in the lattice's type;
+``staging`` sizes it and raises for a tile that does not fit.
 
 A wrapper launches its kernel for a CUDA tensor and takes the plain
 version only for a CPU tensor. ``LAUNCHES`` counts kernel launches (plain
@@ -36,6 +41,10 @@ from .philox import philox_proposal_fields
 LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0}
 
 _LIB = "escg_update_fused"
+# the shared memory a block may use on the H100 (227 KB), less the kernels'
+# static direction table
+SMEM_BYTES = 232448 - 64
+TILES_PER_BLOCK = 32        # a block is one warp, one tile per lane
 
 
 def reset_launches() -> None:
@@ -78,6 +87,25 @@ def _geometry(grid: torch.Tensor, tile_shape: Tuple[int, int],
     return h, w, th, tw, gh, gw, int(grid_tiles_w)
 
 
+def staging(tile_shape: Tuple[int, int], cell_bytes: int,
+            n_dom: int) -> Tuple[int, int]:
+    """``(stage_bytes, tiles_per_block)`` of the kernels' shared-memory
+    staging: cells as int8 where labels 0..n_dom-1 fit it, else in the
+    lattice's ``cell_bytes``, rows padded to 32-bit words, and as many
+    tiles a block as fit beside K2's ``n_dom`` bins, at most 32. Raises
+    ``ValueError`` if not one tile fits."""
+    th, tw = tile_shape
+    stage = 1 if n_dom <= 128 else cell_bytes
+    tile_bytes = 4 * th * -(-tw * stage // 4)
+    per_block = (SMEM_BYTES - 4 * n_dom) // tile_bytes
+    if per_block < 1:
+        raise ValueError(
+            f"tile {tuple(tile_shape)} staged in {stage}-byte cells takes "
+            f"{tile_bytes} bytes of shared memory with {4 * n_dom} for the "
+            f"counts; a block has {SMEM_BYTES}: use a smaller tile")
+    return stage, min(TILES_PER_BLOCK, per_block)
+
+
 def _check_tables(grid: torch.Tensor, dom: torch.Tensor,
                   dirs: torch.Tensor, neighbourhood: int) -> None:
     if neighbourhood not in (4, 8):
@@ -90,25 +118,30 @@ def _lib() -> ctypes.CDLL:
     fn = lib.escg_tile_round_fused
     if fn.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, u32, u32,
-                       u32, u32, u32, u32, ptr, i32, ptr, i32,
-                       ctypes.c_float, ctypes.c_float, i32, ptr]
+        f32 = ctypes.c_float
+        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
+                       u32, u32, u32, u32, u32, u32, i32, i32, ptr, i32,
+                       ptr, i32, f32, f32, i32, ptr]
         fn.restype = i32
         fn = lib.escg_tile_rounds_fused
-        fn.argtypes = [i32, ptr, ptr, ptr, i32, i32, i32, i32, i32, u32,
-                       u32, u32, ptr, ptr, i32, ptr, i32, ptr, i32,
-                       ctypes.c_float, ctypes.c_float, ptr, i32, ptr]
+        fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32,
+                       i32, u32, u32, u32, ptr, ptr, i32, ptr, i32, ptr,
+                       i32, f32, f32, ptr, i32, ptr]
         fn.restype = i32
-        lib.escg_tile_rounds_fused_blocks.argtypes = [i32, i32, i32]
-        lib.escg_tile_rounds_fused_blocks.restype = i32
+        fn = lib.escg_tile_rounds_fused_blocks
+        fn.argtypes = [i32, i32, i32, i32, i32, i32, i32]
+        fn.restype = i32
     return lib
 
 
-def cooperative_blocks(grid: torch.Tensor, species: int) -> int:
+def cooperative_blocks(grid: torch.Tensor, species: int,
+                       tile_shape: Tuple[int, int]) -> int:
     """Blocks the K2 cooperative launch may use on the grid's card."""
+    stage, per_block = staging(tile_shape, grid.element_size(), species + 1)
     device, _ = build.launch_args(grid)
     return _lib().escg_tile_rounds_fused_blocks(
-        grid.element_size(), species + 1, device)
+        grid.element_size(), stage, per_block, *tile_shape, species + 1,
+        device)
 
 
 # ----------------------------- K1: one round ------------------------------ #
@@ -119,12 +152,16 @@ def escg_tile_round_fused_plain(grid: torch.Tensor, seed: Tuple[int, int],
                                 t_eps: float, t_eps_mu: float,
                                 neighbourhood: int = 4,
                                 tile_offset: Tuple[int, int] = (0, 0),
-                                grid_tiles_w: Optional[int] = None
+                                grid_tiles_w: Optional[int] = None,
+                                shift: Tuple[int, int] = (0, 0)
                                 ) -> torch.Tensor:
-    """Plain version of K1 (same function, any device): Philox fields for
-    every (tile, proposal), then the tile sweep of ``core.sublattice``."""
+    """Plain version of K1 (same function, any device): the roll by
+    ``-shift``, Philox fields for every (tile, proposal), then the tile
+    sweep of ``core.sublattice``."""
     h, w, th, tw, gh, gw, gtw = _geometry(grid, tile_shape, k_per_tile,
                                           grid_tiles_w)
+    if shift[0] or shift[1]:
+        grid = torch.roll(grid, (-int(shift[0]), -int(shift[1])), (0, 1))
     dev = grid.device
     ti = torch.arange(gh, dtype=torch.int64, device=dev)[:, None]
     tj = torch.arange(gw, dtype=torch.int64, device=dev)[None, :]
@@ -146,12 +183,15 @@ def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
                           k_per_tile: int, t_eps: float, t_eps_mu: float,
                           neighbourhood: int = 4,
                           tile_offset: Tuple[int, int] = (0, 0),
-                          grid_tiles_w: Optional[int] = None
+                          grid_tiles_w: Optional[int] = None,
+                          shift: Tuple[int, int] = (0, 0)
                           ) -> torch.Tensor:
-    """One fused round over an already-shifted (H, W) grid; returns a new
-    grid. ``seed``: two uint32 key words; ``round_idx``: the uint32 counter
-    word c1. ``dom``: padded (S+1, S+1) float32 dominance matrix and
-    ``dirs`` the (8, 2) int32 direction table, both on the grid's device.
+    """One fused round over the (H, W) grid rolled by ``-shift`` (the
+    kernel reads the rolled cells; the default leaves the grid as it is);
+    returns a new grid in the rolled frame. ``seed``: two uint32 key
+    words; ``round_idx``: the uint32 counter word c1. ``dom``: padded
+    (S+1, S+1) float32 dominance matrix and ``dirs`` the (8, 2) int32
+    direction table, both on the grid's device.
     """
     h, w, th, tw, gh, gw, gtw = _geometry(grid, tile_shape, k_per_tile,
                                           grid_tiles_w)
@@ -159,17 +199,20 @@ def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
     if grid.device.type == "cpu":
         return escg_tile_round_fused_plain(
             grid, seed, round_idx, dom, tile_shape, k_per_tile, t_eps,
-            t_eps_mu, neighbourhood, tile_offset, grid_tiles_w)
+            t_eps_mu, neighbourhood, tile_offset, grid_tiles_w, shift)
+    stage, per_block = staging(tile_shape, grid.element_size(),
+                               dom.shape[0])
     device, stream = build.launch_args(grid)
     out = torch.empty_like(grid)
     lib = _lib()
     err = lib.escg_tile_round_fused(
-        grid.element_size(), build.ptr(out), build.ptr(grid), h, w, th, tw,
-        int(k_per_tile), gtw & MASK, int(tile_offset[0]) & MASK,
-        int(tile_offset[1]) & MASK, int(seed[0]) & MASK,
-        int(seed[1]) & MASK, int(round_idx) & MASK, build.ptr(dom),
-        dom.shape[0], build.ptr(dirs), int(neighbourhood), float(t_eps),
-        float(t_eps_mu), device, stream)
+        grid.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(grid), h, w, th, tw, int(k_per_tile), gtw & MASK,
+        int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK,
+        int(seed[0]) & MASK, int(seed[1]) & MASK, int(round_idx) & MASK,
+        int(shift[0]) % h, int(shift[1]) % w, build.ptr(dom), dom.shape[0],
+        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
+        device, stream)
     build.check(lib, err, "escg_tile_round_fused launch")
     LAUNCHES["escg_tile_round_fused"] += 1
     return out
@@ -228,6 +271,7 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
         return escg_tile_rounds_fused_plain(
             grid, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
             t_eps_mu, species, neighbourhood, tile_offset, grid_tiles_w)
+    stage, per_block = staging(tile_shape, grid.element_size(), species + 1)
     device, stream = build.launch_args(grid)
     out = torch.empty_like(grid)
     scratch = torch.empty_like(grid)
@@ -237,8 +281,9 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
         return grid.clone(), counts
     lib = _lib()
     err = lib.escg_tile_rounds_fused(
-        grid.element_size(), build.ptr(out), build.ptr(scratch),
-        build.ptr(grid), h, w, th, tw, int(k_per_tile), gtw & MASK,
+        grid.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(scratch), build.ptr(grid), h, w, th, tw,
+        int(k_per_tile), gtw & MASK,
         int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK,
         build.ptr(seeds), build.ptr(shifts), n_steps, build.ptr(dom),
         dom.shape[0], build.ptr(dirs), int(neighbourhood), float(t_eps),

@@ -1,7 +1,8 @@
 """Launch wrappers around the kernels (port of ``repro.kernels.ops``): the
-torus roll stays outside K1 and K3, as the reference keeps it outside its
-Pallas calls. ``launches``/``reset_launches`` read and clear every
-kernel's launch count."""
+torus roll stays outside K3, as the reference keeps it outside its Pallas
+calls, and is fused into the tile loads of K1 and K2.
+``launches``/``reset_launches`` read and clear every kernel's launch
+count."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -61,14 +62,13 @@ def escg_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
                      roll_back: bool = True,
                      tile_offset: Tuple[int, int] = (0, 0),
                      grid_tiles_w: Optional[int] = None) -> torch.Tensor:
-    """Fused-PRNG sublattice round: roll by ``-shift``, one K1 launch, and
-    roll back unless ``roll_back=False`` (the engines let the frame
-    drift)."""
+    """Fused-PRNG sublattice round: one K1 launch that reads the grid
+    rolled by ``-shift``, and a roll back unless ``roll_back=False`` (the
+    engines let the frame drift)."""
     dy, dx = int(shift[0]), int(shift[1])
-    g = torch.roll(grid, (-dy, -dx), (0, 1))
     g = fused.escg_tile_round_fused(
-        g, seed, round_idx, dom, dirs, tile_shape, k_per_tile, t_eps,
-        t_eps_mu, neighbourhood, tile_offset, grid_tiles_w)
+        grid, seed, round_idx, dom, dirs, tile_shape, k_per_tile, t_eps,
+        t_eps_mu, neighbourhood, tile_offset, grid_tiles_w, (dy, dx))
     if roll_back:
         g = torch.roll(g, (dy, dx), (0, 1))
     return g

@@ -49,35 +49,79 @@ def _grid(dev, species, dtype, seed=1):
                              dtype=dtype, device=dev)
 
 
+# (lattice, tile, proposals per tile, shift): the first is the original
+# case; the others have 63 tiles (a partial group of the 32 a block
+# stages), K other than th * tw, and shifts 1, H - 1 and W - 1
+ROUND_CASES = [
+    ((64, 128), (8, 16), 64, (0, 0)),
+    ((72, 56), (8, 8), 64, (0, 0)),
+    ((72, 112), (8, 16), 37, (1, 1)),
+    ((72, 224), (8, 32), 256, (71, 223)),
+    ((144, 224), (16, 32), 512, (0, 223)),
+]
+
+
+@pytest.mark.parametrize("hw,tile,k,shift", ROUND_CASES)
 @pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
                                         (torch.int16, 4)])
 @pytest.mark.parametrize("offset,gtw", [((0, 0), None), ((3, 7), 111)])
-def test_round_kernel_equals_plain(cuda, dtype, nbhd, offset, gtw):
-    grid = _grid(cuda, 5, dtype)
+def test_round_kernel_equals_plain(cuda, dtype, nbhd, offset, gtw, hw, tile,
+                                   k, shift):
+    """K1 (with the roll fused into its tile load) against ``torch.roll``
+    followed by the plain K1."""
+    grid = lattice.init_grid(threefry.PRNGKey(1), *hw, 5, 0.1, dtype=dtype,
+                             device=cuda)
     dom, dirs = _tables(5, cuda)
     before = fused.LAUNCHES["escg_tile_round_fused"]
-    got = fused.escg_tile_round_fused(grid, (9, 10), 3, dom, dirs, (8, 16),
-                                      64, 0.25, 0.6, nbhd, offset, gtw)
-    want = fused.escg_tile_round_fused_plain(grid, (9, 10), 3, dom, (8, 16),
-                                             64, 0.25, 0.6, nbhd, offset,
-                                             gtw)
+    got = fused.escg_tile_round_fused(grid, (9, 10), 3, dom, dirs, tile, k,
+                                      0.25, 0.6, nbhd, offset, gtw, shift)
+    want = fused.escg_tile_round_fused_plain(
+        torch.roll(grid, (-shift[0], -shift[1]), (0, 1)), (9, 10), 3, dom,
+        tile, k, 0.25, 0.6, nbhd, offset, gtw)
     torch.cuda.synchronize()
     assert fused.LAUNCHES["escg_tile_round_fused"] == before + 1
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
-def test_megakernel_equals_plain(cuda, dtype):
-    grid = _grid(cuda, 3, dtype, seed=2)
-    dom, dirs = _tables(3, cuda)
-    seeds = torch.tensor([[1, 2], [2 ** 32 - 1, 5], [7, 8]],
-                         dtype=torch.int64, device=cuda)
-    shifts = torch.tensor([[1, 5], [7, 0], [0, 15]], dtype=torch.int64,
-                          device=cuda)
-    got = fused.escg_tile_rounds_fused(grid, seeds, shifts, dom, dirs,
-                                       (8, 16), 64, 0.25, 0.6, 3)
+# (lattice, tile, proposals per tile, steps, neighbourhood, species,
+# tile_offset, grid_tiles_w): the first is the original case
+MEGA_CASES = [
+    ((64, 128), (8, 16), 64, 3, 4, 3, (0, 0), None),
+    ((72, 56), (8, 8), 64, 1, 8, 5, (3, 7), 111),
+    ((72, 112), (8, 16), 37, 10, 4, 3, (0, 0), None),
+    ((72, 224), (8, 32), 256, 3, 8, 5, (0, 0), None),
+    ((144, 224), (16, 32), 100, 10, 4, 3, (3, 7), 111),
+]
+
+
+def _schedule(n_steps, hw, dev):
+    """Seeds with the extreme words, and shifts 0, 1, H - 1 and W - 1
+    (the original three steps keep their shifts)."""
+    h, w = hw
+    shifts = ([(1, 5), (7, 0), (0, 15)] if n_steps == 3 else
+              [(h - 1, w - 1), (0, 0), (1, 1), (h - 1, 0), (0, w - 1),
+               (1, w - 1), (h - 1, 1), (0, 1), (1, 0), (7, 9)][:n_steps])
+    words = [(1, 2), (2 ** 32 - 1, 5), (7, 8), (0, 2 ** 32 - 1)]
+    seeds = [words[t % len(words)] for t in range(n_steps)]
+    return (torch.tensor(seeds, dtype=torch.int64, device=dev),
+            torch.tensor(shifts, dtype=torch.int64, device=dev))
+
+
+@pytest.mark.parametrize("hw,tile,k,n_steps,nbhd,species,offset,gtw",
+                         MEGA_CASES)
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.int16])
+def test_megakernel_equals_plain(cuda, dtype, hw, tile, k, n_steps, nbhd,
+                                 species, offset, gtw):
+    grid = lattice.init_grid(threefry.PRNGKey(2), *hw, species, 0.1,
+                             dtype=dtype, device=cuda)
+    dom, dirs = _tables(species, cuda)
+    seeds, shifts = _schedule(n_steps, hw, cuda)
+    got = fused.escg_tile_rounds_fused(grid, seeds, shifts, dom, dirs, tile,
+                                       k, 0.25, 0.6, species, nbhd, offset,
+                                       gtw)
     want = fused.escg_tile_rounds_fused_plain(grid, seeds, shifts, dom,
-                                              (8, 16), 64, 0.25, 0.6, 3)
+                                              tile, k, 0.25, 0.6, species,
+                                              nbhd, offset, gtw)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0])
     assert torch.equal(got[1], want[1])

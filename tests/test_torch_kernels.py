@@ -7,6 +7,11 @@ kernels themselves in interpret mode, which run on the installed JAX.
 ``test_torch_cuda.py`` holds the CUDA kernels to those plain versions on
 the card.
 """
+import ctypes
+import re
+import types
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +26,7 @@ from repro.core import sublattice as jsublattice
 from repro.kernels import ops as jops
 from repro.kernels import ref
 from repro_torch.core import dominance, lattice, rng, rules, threefry
-from repro_torch.kernels import density, escg_update
+from repro_torch.kernels import build, density, escg_update
 from repro_torch.kernels import escg_update_fused as fused
 from repro_torch.kernels import ops, philox
 
@@ -207,6 +212,114 @@ def test_wrapper_rejects_bad_input():
         fused.escg_tile_round_fused(grid.to("meta"), (1, 2), 0,
                                     dom.to("meta"), dirs.to("meta"),
                                     (8, 16), 8, 0.2, 0.5)
+
+
+@pytest.mark.parametrize("dy,dx", [(0, 0), (1, 1), (15, 31), (1, 31)])
+def test_round_with_shift_matches_rolled_oracle(dy, dx):
+    """``ops.escg_round_fused`` without the roll back, and K1 given the
+    shift (which its kernel fuses into the tile load), equal the grid
+    rolled by ``-shift`` fed to the reference's oracle of K1."""
+    grid = _grid(16, 32, 5, seed=6)
+    dom = _dom(5)
+    tile, k, seed = (8, 16), 53, (0x1234ABCD, 0x9E3779B9)
+    rolled = jnp.roll(jnp.asarray(grid.numpy()), (-dy, -dx), (0, 1))
+    cell, dirn, ua, ud = ref.fused_proposals_ref(4, k, 6 * 14, 8, seed, 3)
+    want = np.asarray(ref.escg_tile_round_ref(
+        rolled, jnp.asarray(cell), jnp.asarray(dirn), jnp.asarray(ua),
+        jnp.asarray(ud), jnp.asarray(dom), tile, 0.25, 0.6))
+    dirs = torch.as_tensor(lattice.DIRS)
+    got = ops.escg_round_fused(grid, seed, 3, (dy, dx), torch.from_numpy(dom),
+                               dirs, tile, k, 0.25, 0.6, 8, roll_back=False)
+    np.testing.assert_array_equal(got.numpy(), want)
+    direct = fused.escg_tile_round_fused(grid, seed, 3, torch.from_numpy(dom),
+                                         dirs, tile, k, 0.25, 0.6, 8,
+                                         shift=(dy, dx))
+    assert torch.equal(direct, got)
+
+
+@pytest.mark.parametrize("tile,cell_bytes,n_dom,want", [
+    ((8, 32), 4, 4, (1, 32)),          # park3's main path: int8 staging
+    ((8, 8), 1, 6, (1, 32)),
+    ((16, 32), 2, 4, (1, 32)),
+    ((5, 7), 4, 4, (1, 32)),           # rows padded to 8 cells
+    ((64, 64), 4, 200, (4, 14)),       # labels past int8: int32 staging
+])
+def test_staging_sizes(tile, cell_bytes, n_dom, want):
+    stage, per_block = fused.staging(tile, cell_bytes, n_dom)
+    assert (stage, per_block) == want
+    row_bytes = 4 * -(-tile[1] * stage // 4)
+    assert per_block * tile[0] * row_bytes + 4 * n_dom <= fused.SMEM_BYTES
+
+
+@pytest.mark.parametrize("kernel", ["K1", "K2"])
+def test_oversize_tile_raises_before_launch(kernel):
+    """A tile the staging cannot hold raises ``ValueError`` in the wrapper
+    before the card is touched (a meta tensor reaches no launch)."""
+    with pytest.raises(ValueError, match="shared memory"):
+        fused.staging((256, 256), 4, 200)
+    grid = torch.zeros((1024, 1024), dtype=torch.int8, device="meta")
+    dom = torch.zeros((4, 4), dtype=torch.float32, device="meta")
+    dirs = torch.zeros((8, 2), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="shared memory"):
+        if kernel == "K1":
+            fused.escg_tile_round_fused(grid, (1, 2), 0, dom, dirs,
+                                        (512, 512), 8, 0.2, 0.5)
+        else:
+            sched = torch.zeros((2, 2), dtype=torch.int64, device="meta")
+            fused.escg_tile_rounds_fused(grid, sched, sched, dom, dirs,
+                                         (512, 512), 8, 0.2, 0.5, 3)
+
+
+class _RecordingLib:
+    """Stands in for a loaded library: records the ctypes signatures a
+    module's ``_lib`` sets."""
+
+    def __init__(self):
+        self.fns = {}
+
+    def __getattr__(self, name):
+        return self.fns.setdefault(
+            name, types.SimpleNamespace(argtypes=None, restype=None))
+
+
+_C_TYPES = {"int": ctypes.c_int, "uint32_t": ctypes.c_uint32,
+            "int64_t": ctypes.c_int64, "float": ctypes.c_float}
+
+
+def _c_declarations(path):
+    """name -> (return type, parameter types) of the ``extern "C"``
+    functions of a source; pointers as ``c_void_p``."""
+    block = path.read_text().split('extern "C" {', 1)[1]
+    decls = {}
+    for ret, name, params in re.findall(
+            r"^(int|const char\*)\s+(\w+)\(([^)]*)\)\s*\{", block, re.M):
+        kinds = []
+        for param in params.split(","):
+            ctype = param.rsplit(None, 1)[0].replace("const ", "").strip()
+            kinds.append(ctypes.c_void_p if "*" in param
+                         else _C_TYPES[ctype])
+        decls[name] = (ret, kinds)
+    return decls
+
+
+@pytest.mark.parametrize("module", [fused, escg_update, density, philox],
+                         ids=lambda m: m.__name__.rsplit(".", 1)[1])
+def test_ctypes_signatures_match_c_declarations(module, monkeypatch):
+    """Every entry point of ``csrc/<library>.cu`` is bound with as many
+    arguments as it declares, each of the same kind (pointer, 32-bit
+    signed or unsigned, 64-bit, float); a mismatch would otherwise show
+    only on the card."""
+    lib = _RecordingLib()
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    module._lib()
+    decls = _c_declarations(Path(build.CSRC) / f"{module._LIB}.cu")
+    # escg_error_string is bound by build.load for every library
+    assert decls.pop("escg_error_string")[1] == [ctypes.c_int]
+    assert set(decls) == set(lib.fns)
+    for name, (ret, kinds) in decls.items():
+        fn = lib.fns[name]
+        assert ret == "int" and fn.restype is ctypes.c_int, name
+        assert list(fn.argtypes) == kinds, name
 
 
 def test_counter_capacity_guard():
