@@ -5,9 +5,11 @@
 
 Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5)
 from ``src/repro_torch/kernels/csrc``, holds each against its plain
-PyTorch version on the card (K1 and K2 also at the edges of their
+PyTorch version on the card (K1, K2 and K3 also at the edges of their
 shared-memory staging: every lattice type, both neighbourhoods, four
-tiles, partial blocks of tiles, fused shifts), reproduces
+tiles, partial blocks of tiles, K other than th * tw, fused shifts; K4
+over lattice types, label counts on both sides of its register bins,
+labels outside 0..S, ragged lengths and a misaligned view), reproduces
 ``tests/golden/fused_trajectory.json`` through ``simulate`` on the card,
 and drives the port's paths through the entry points a user calls, each
 with the launch counts set to 0 just before it and read just after:
@@ -15,7 +17,8 @@ with the launch counts set to 0 just before it and read just after:
 * park3 at 3200 x 3200 on the ``pallas_fused`` engine, ``k_mcs`` 1 and 10
   (K1, K2, K4), and again with every observable on;
 * park3 at 3200 x 3200 on the stream-fed ``pallas`` engine with its
-  declared observables (K3, K4), held to the plain ``sublattice`` engine;
+  declared observables (K3, K4, no ``torch.roll``), held to the plain
+  ``sublattice`` engine;
 * bulk Philox words and uniforms, ``ops.philox_bits``/``philox_uniform``
   (K5).
 
@@ -24,6 +27,7 @@ last, ``{"ok": true, "device": ...}``. Any failure raises and exits
 non-zero; without a CUDA card, or without the repository around it, it
 exits non-zero before printing a result. It imports nothing of JAX.
 """
+import contextlib
 import hashlib
 import itertools
 import json
@@ -37,14 +41,20 @@ GOLDEN = os.path.join(HERE, "tests", "golden", "fused_trajectory.json")
 
 SIDE, TILE, MCS, CHUNK = 3200, (8, 32), 200, 100
 K_MCS = 10
-# K1's and K2's ms per launch before their redesign for shared-memory
-# staging (PERF.md's kernel table; an NVIDIA H100 80GB HBM3 at 700 W),
-# printed beside this run's
-PREVIOUS_MS = {"K1": 0.5462, "K2": 7.1767}
+# each kernel's ms per launch before its redesign for shared-memory
+# staging or wide loads (PERF.md's kernel table; an NVIDIA H100 80GB HBM3
+# at 700 W), printed beside this run's
+PREVIOUS_MS = {"K1": 0.5462, "K2": 7.1767, "K3": 0.9684, "K4": 0.0273}
+# K1's and K2's ms per launch after their redesign (the same table)
+REDESIGNED_MS = {"K1": 0.1289, "K2": 1.1594}
 # the edge cases' lattice: 900 to 3,600 tiles for the tiles below, never a
 # whole number of the 32 tiles a block stages
 EDGE_SIDE = 480
 EDGE_TILES = ((8, 8), (8, 16), (8, 32), (16, 32))
+# K4's cases: label counts S on both sides of its register bins (16
+# labels), and lengths with ragged heads and tails
+K4_SPECIES = (3, 5, 15, 16, 40)
+K4_LENGTHS = (0, 1, 31, 4099)
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory
 # Instructions one elementary update needs at the least: Philox-4x32-10
 # with its round keys in registers is 10 rounds of 2 wide multiplies (hi
@@ -101,6 +111,27 @@ def event_ms(torch, fn, n):
     return start.elapsed_time(stop) / n
 
 
+def profiled_ms(torch, fn, n, kernel):
+    """Device ms per call of the kernels whose name holds ``kernel``, from
+    a ``torch.profiler`` trace of ``n`` calls after one warm-up call; None
+    if the trace holds no device time for them."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if (evt.device_type == torch.autograd.DeviceType.CUDA
+                and kernel in evt.key):
+            us += float(getattr(evt, "self_device_time_total", 0.0)
+                        or getattr(evt, "self_cuda_time_total", 0.0))
+    return us / n / 1e3 if us > 0 else None
+
+
 def max_err(torch, a, b):
     return float((a.long() - b.long()).abs().max()) if a.numel() else 0.0
 
@@ -128,6 +159,41 @@ def edge_cases(torch):
                       111 if i % 4 == 1 else None, steps,
                       (pattern[i % 10:] + pattern[:i % 10])[:steps]))
     return cases
+
+
+def stream_edge_cases(torch, chunk):
+    """K3 cases at the staging's edges: (dtype, neighbourhood, tile,
+    proposals per tile, shift). Every lattice type meets every tile and
+    both neighbourhoods; K is th * tw, th * tw - 7 and less than one chunk
+    of the proposal stream; shifts include 0, 1, H - 1 and W - 1."""
+    h = w = EDGE_SIDE
+    pattern = [(0, 0), (1, 1), (h - 1, w - 1), (h - 1, 0), (0, w - 1),
+               (1, w - 1), (h - 1, 1)]
+    cases = []
+    for i, (dtype, tile, nbhd) in enumerate(itertools.product(
+            (torch.int8, torch.int16, torch.int32), EDGE_TILES, (4, 8))):
+        for j, k in enumerate((tile[0] * tile[1], tile[0] * tile[1] - 7,
+                               chunk - 3)):
+            cases.append((dtype, nbhd, tile, k,
+                          pattern[(3 * i + j) % len(pattern)]))
+    return cases
+
+
+@contextlib.contextmanager
+def counted_rolls(torch, rolls, key):
+    """Count the ``torch.roll`` calls made while the block runs into
+    ``rolls[key]``."""
+    real = torch.roll
+    rolls[key] = 0
+
+    def counted(*args, **kwargs):
+        rolls[key] += 1
+        return real(*args, **kwargs)
+    torch.roll = counted
+    try:
+        yield
+    finally:
+        torch.roll = real
 
 
 def main():
@@ -294,27 +360,17 @@ def main():
 
     # ---- 6. the main path ----
     results, launches, rolls = {}, {}, {}
-    real_roll = torch.roll
-
-    def counted_roll(*args, **kwargs):
-        rolls[k_mcs] += 1
-        return real_roll(*args, **kwargs)
-
     for k_mcs in (1, K_MCS):
         stamps = []
-        rolls[k_mcs] = 0
         ops.reset_launches()
-        torch.roll = counted_roll
         t0 = time.perf_counter()
-        try:
+        with counted_rolls(torch, rolls, k_mcs):
             r = simulate(park3,
                          engine=EngineConfig(engine="pallas_fused",
                                              tile=TILE, k_mcs=k_mcs),
                          run=run,
                          hooks=[lambda m, g, c: stamps.append(
                              time.perf_counter())])
-        finally:
-            torch.roll = real_roll
         wall = time.perf_counter() - t0
         launches[k_mcs] = ops.launches()
         results[k_mcs] = r
@@ -376,12 +432,13 @@ def main():
             ("K1", k1_ms, k1_plain, k1_bound, k1_by),
             ("K2", k2_ms, k2_plain, k2_bound, k2_by)):
         print(f"[time] {name}{' (K=10)' if name == 'K2' else ''}: "
-              f"{ms:.4f} ms per launch (before the redesign "
-              f"{PREVIOUS_MS[name]} ms, {PREVIOUS_MS[name] / ms:.2f}x), "
-              f"plain {plain:.2f} ms, bound {bnd * 1e3:.1f} us by {by}, "
-              f"{bnd / ms:.3f} of the bound's time (instruction rate "
-              f"{instr_per_s / 1e12:.2f} T/s at {clock_hz / 1e9:.2f} GHz); "
-              f"library call: none computes a sequential tile sweep")
+              f"{ms:.4f} ms per launch (after its redesign "
+              f"{REDESIGNED_MS[name]} ms; before it {PREVIOUS_MS[name]} ms, "
+              f"{PREVIOUS_MS[name] / ms:.2f}x), plain {plain:.2f} ms, bound "
+              f"{bnd * 1e3:.1f} us by {by}, {bnd / ms:.3f} of the bound's "
+              f"time (instruction rate {instr_per_s / 1e12:.2f} T/s at "
+              f"{clock_hz / 1e9:.2f} GHz); library call: none computes a "
+              f"sequential tile sweep; {card}")
 
     # ---- 8. [threefry] the stream-fed engines' draws, card against host --
     interior = (th - 2) * (tw - 2)
@@ -403,19 +460,26 @@ def main():
           f"on the card, peak {peak_gb:.2f} GB above the resident tensors")
 
     # ---- 9. [K3] the stream-fed round against its plain version ----
+    def rolled(grid, shift):
+        return torch.roll(grid, (-shift[0], -shift[1]), (0, 1))
+
     k3_err = 0.0
     for seed in (1, 2, 3):
         props = rng.tile_stream_batch(threefry.PRNGKey(seed).to(dev),
                                       tile_ids, k, interior, 4)
-        a = escg_update.escg_tile_round(g_main, *props, dom, dirs, TILE, te,
-                                        tem)
-        b = escg_update.escg_tile_round_plain(g_main, *props, dom, TILE, te,
-                                              tem)
-        torch.cuda.synchronize()
-        err = max_err(torch, a, b)
-        k3_err = max(k3_err, err)
-        print(f"[K3] {SIDE}x{SIDE} int32 nbhd 4 stream key {seed}: "
-              f"max_abs_err {err}, cells changed {int((a != g_main).sum())}")
+        for shift in ((0, 0), (1, 1), (th - 1, tw - 1)):
+            a = escg_update.escg_tile_round(g_main, *props, dom, dirs, TILE,
+                                            te, tem, shift)
+            g_in = rolled(g_main, shift)
+            b = escg_update.escg_tile_round_plain(g_in, *props, dom, TILE,
+                                                  te, tem)
+            torch.cuda.synchronize()
+            err = max_err(torch, a, b)
+            k3_err = max(k3_err, err)
+            print(f"[K3] {SIDE}x{SIDE} int32 nbhd 4 stream key {seed} shift "
+                  f"{shift} against torch.roll and the plain K3: "
+                  f"max_abs_err {err}, cells changed "
+                  f"{int((a != g_in).sum())}")
     n8 = (512 // th) * (512 // tw)
     props8 = rng.tile_stream_batch(threefry.PRNGKey(4).to(dev),
                                    torch.arange(n8, device=dev), k8,
@@ -429,6 +493,27 @@ def main():
     k3_err = max(k3_err, err)
     print(f"[K3] {g8.shape[0]}x{g8.shape[1]} int8 nbhd 8: max_abs_err "
           f"{err}")
+    k3_edges = stream_edge_cases(torch, escg_update.CHUNK)
+    edge_err = 0.0
+    for i, (dtype, nbhd, tile, k_edge, shift) in enumerate(k3_edges):
+        g = grid_on_card(EDGE_SIDE, 5, dtype, 4)
+        n_edge = (EDGE_SIDE // tile[0]) * (EDGE_SIDE // tile[1])
+        props = rng.tile_stream_batch(
+            threefry.PRNGKey(10 + i).to(dev), torch.arange(n_edge, device=dev),
+            k_edge, (tile[0] - 2) * (tile[1] - 2), nbhd)
+        a = escg_update.escg_tile_round(g, *props, dom5, dirs, tile, 0.25,
+                                        0.6, shift)
+        b = escg_update.escg_tile_round_plain(rolled(g, shift), *props, dom5,
+                                              tile, 0.25, 0.6)
+        torch.cuda.synchronize()
+        edge_err = max(edge_err, max_err(torch, a, b))
+    k3_err = max(k3_err, edge_err)
+    print(f"[K3] {len(k3_edges)} edge cases at {EDGE_SIDE}x{EDGE_SIDE} "
+          f"(int8, int16, int32; nbhd 4, 8; tiles {EDGE_TILES}; K = th*tw, "
+          f"th*tw - 7 and {escg_update.CHUNK - 3} < one chunk of "
+          f"{escg_update.CHUNK}; shifts with 0, 1, H-1, W-1; partial blocks "
+          f"of tiles) against torch.roll and the plain K3: max_abs_err "
+          f"{edge_err}")
     check(k3_err == 0.0, f"K3 disagrees with its plain version ({k3_err})")
 
     # ---- 10. [pallas] the stream-fed engine, held to the plain sweep ----
@@ -455,14 +540,18 @@ def main():
     stamps = []
     ops.reset_launches()
     t0 = time.perf_counter()
-    r = park3_run("pallas", MCS, CHUNK,
-                  hooks=[lambda m, g, c: stamps.append(time.perf_counter())])
+    with counted_rolls(torch, rolls, "pallas"):
+        r = park3_run("pallas", MCS, CHUNK,
+                      hooks=[lambda m, g, c: stamps.append(
+                          time.perf_counter())])
     wall = time.perf_counter() - t0
     launches["pallas"] = ops.launches()
     check(launches["pallas"]["escg_tile_round"] == MCS
           and launches["pallas"]["density_counts"] == MCS + 1,
           f"the pallas path did not run through K3 and K4: "
           f"{launches['pallas']}")
+    check(rolls["pallas"] == 0, f"the pallas path rolled the lattice "
+          f"outside K3 ({rolls['pallas']} torch.roll calls)")
     iface = r.observables["interface_length"]
     check(r.grid.shape == (SIDE, SIDE) and r.densities.shape == (MCS + 1, 4)
           and iface.shape == (MCS, 1) and np.isfinite(iface).all()
@@ -472,7 +561,8 @@ def main():
     pallas_ms = (stamps[1] - stamps[0]) / CHUNK * 1e3
     print(f"[pallas] park3 {SIDE}x{SIDE} pallas {MCS} MCS with park3's "
           f"observables: {wall:.3f}s incl. set-up; second chunk "
-          f"{pallas_ms:.4f} ms/MCS; launches {launches['pallas']}; final "
+          f"{pallas_ms:.4f} ms/MCS; launches {launches['pallas']}; "
+          f"torch.roll calls {rolls['pallas']}; final "
           f"interface_length {float(iface[-1, 0])!r}; final densities "
           f"{r.densities[-1].tolist()}")
 
@@ -510,23 +600,41 @@ def main():
           f"and the grid-derived streams are lag-held at group starts")
 
     # ---- 12. [K4] the species histogram ----
+    def k4_against_plain(g, species):
+        a = density.density_counts(g, species)
+        b = density.density_counts_plain(g, species)
+        valid = g[(g >= 0) & (g <= species)].long()
+        lib = torch.bincount(valid, minlength=species + 1)
+        torch.cuda.synchronize()
+        return max(max_err(torch, a, b), max_err(torch, a, lib))
+
     k4_err = 0.0
-    g_over = torch.randint(0, 8, (SIDE, SIDE), device=dev,
-                           generator=torch.Generator(dev).manual_seed(1),
-                           dtype=torch.int32)
-    for label, grid in (("park3 lattice", g_main), ("labels 0..7", g_over)):
-        for dtype in (torch.int32, torch.int8):
-            g = grid.to(dtype)
-            for species in (3, 5):
-                a = density.density_counts(g, species)
-                b = density.density_counts_plain(g, species)
-                lib = torch.bincount(g.reshape(-1).long(),
-                                     minlength=species + 1)[:species + 1]
-                torch.cuda.synchronize()
-                err = max(max_err(torch, a, b), max_err(torch, a, lib))
+    for label, grid in (("park3 lattice", g_main),
+                        ("labels -2..S+3", None)):
+        for dtype in (torch.int32, torch.int16, torch.int8):
+            for species in K4_SPECIES:
+                g = (grid if grid is not None else torch.randint(
+                    -2, species + 4, (SIDE, SIDE), device=dev,
+                    generator=torch.Generator(dev).manual_seed(species),
+                    dtype=torch.int32)).to(dtype)
+                err = max(k4_against_plain(g, species),
+                          k4_against_plain(g.reshape(-1)[1:], species))
                 k4_err = max(k4_err, err)
-                print(f"[K4] {SIDE}x{SIDE} {label} {dtype} S={species}: "
-                      f"max_abs_err {err} against plain and bincount")
+                print(f"[K4] {SIDE}x{SIDE} {label} {dtype} S={species} "
+                      f"(whole, and the view from cell 1): max_abs_err "
+                      f"{err} against plain and bincount")
+    short_err = 0.0
+    for dtype, species, n in itertools.product(
+            (torch.int32, torch.int16, torch.int8), K4_SPECIES, K4_LENGTHS):
+        x = torch.randint(-2, species + 4, (n + 1,), device=dev,
+                          generator=torch.Generator(dev).manual_seed(n),
+                          dtype=torch.int32).to(dtype)
+        short_err = max(short_err, k4_against_plain(x[:n], species),
+                        k4_against_plain(x[1:], species))
+    k4_err = max(k4_err, short_err)
+    print(f"[K4] lengths {K4_LENGTHS}, aligned and from cell 1, S in "
+          f"{K4_SPECIES}, int32, int16, int8, labels -2..S+3: max_abs_err "
+          f"{short_err} against plain and bincount")
     check(k4_err == 0.0, f"K4 disagrees ({k4_err})")
 
     # ---- 13. [K5] bulk Philox words and uniforms ----
@@ -565,11 +673,15 @@ def main():
     props = rng.tile_stream_batch(kp.to(dev), tile_ids, k, interior, 4)
     k3_ms = event_ms(torch, lambda: escg_update.escg_tile_round(
         g_main, *props, dom, dirs, TILE, te, tem), 50)
+    k3_shift_ms = event_ms(torch, lambda: escg_update.escg_tile_round(
+        g_main, *props, dom, dirs, TILE, te, tem, (th - 1, tw - 1)), 50)
     k3_plain = event_ms(torch, lambda: escg_update.escg_tile_round_plain(
         g_main, *props, dom, TILE, te, tem), 2)
     k3_bound, k3_by = bound(2 * cell_bytes + 4 * 4 * updates,
                             updates * OPS_PER_STREAM_UPDATE)
     k4_ms = event_ms(torch, lambda: density.density_counts(g_main, 3), 100)
+    k4_device_ms = profiled_ms(torch, lambda: density.density_counts(
+        g_main, 3), 100, "density_kernel")
     k4_plain = event_ms(torch, lambda: density.density_counts_plain(
         g_main, 3), 10)
     k4_lib = event_ms(torch, lambda: torch.bincount(
@@ -582,16 +694,24 @@ def main():
         K5_WORDS, (1, 2), device=dev), 3)
     k5_bound, k5_by = bound(4 * K5_WORDS,
                             K5_WORDS // 4 * OPS_PER_COUNTER)
+    k4_device = ("not measured (the profiler saw no device time)"
+                 if k4_device_ms is None else f"{k4_device_ms:.4f} ms")
     for name, ms, plain, bnd, by, lib_note in (
             ("K3", k3_ms, k3_plain, k3_bound, k3_by,
-             "none computes a sequential tile sweep"),
+             f"none computes a sequential tile sweep; with the fused shift "
+             f"{(th - 1, tw - 1)} {k3_shift_ms:.4f} ms"),
             ("K4", k4_ms, k4_plain, k4_bound, k4_by,
-             f"torch.bincount {k4_lib:.4f} ms"),
+             f"torch.bincount {k4_lib:.4f} ms; device time by the profiler "
+             f"{k4_device} per launch"),
             ("K5", k5_ms, k5_plain, k5_bound, k5_by,
              "none (torch's Philox has another counter layout)")):
-        print(f"[time] {name}: {ms:.4f} ms per launch, plain {plain:.2f} "
-              f"ms, bound {bnd * 1e3:.1f} us by {by}; library call: "
-              f"{lib_note}")
+        before = (f" (before the redesign {PREVIOUS_MS[name]} ms, "
+                  f"{PREVIOUS_MS[name] / ms:.2f}x)"
+                  if name in PREVIOUS_MS else "")
+        print(f"[time] {name}: {ms:.4f} ms per launch{before}, plain "
+              f"{plain:.2f} ms, bound {bnd * 1e3:.1f} us by {by}, "
+              f"{bnd / ms:.3f} of the bound's time; library call: "
+              f"{lib_note}; {card}")
 
     # ---- 15. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"

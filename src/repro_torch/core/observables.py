@@ -247,7 +247,10 @@ def _obs_densities(grid, counts, p):
 
 
 def _bonds(grid: torch.Tensor):
-    return torch.roll(grid, -1, 1), torch.roll(grid, -1, 0)
+    """The torus's right and down bonds as (cell, neighbour) pairs of views,
+    the inner bonds and then those that wrap around: no copy of the grid."""
+    return ((grid[:, :-1], grid[:, 1:]), (grid[:, -1:], grid[:, :1]),
+            (grid[:-1], grid[1:]), (grid[-1:], grid[:1]))
 
 
 @register_observable(
@@ -256,8 +259,7 @@ def _bonds(grid: torch.Tensor):
     description="fraction of unlike nearest-neighbour bonds on the torus "
                 "(interface length density)")
 def _obs_interface_length(grid, counts, p):
-    right, down = _bonds(grid)
-    n_unlike = (grid != right).sum() + (grid != down).sum()
+    n_unlike = sum((a != b).sum() for a, b in _bonds(grid))
     return _f32(n_unlike).reshape(1)
 
 
@@ -267,10 +269,7 @@ def _obs_interface_length(grid, counts, p):
     description="same-species occupied-bond density, a cluster-size "
                 "proxy")
 def _obs_cluster_size(grid, counts, p):
-    right, down = _bonds(grid)
-    occupied = grid > 0
-    n_like = (((grid == right) & occupied).sum()
-              + ((grid == down) & occupied).sum())
+    n_like = sum(((a == b) & (a > 0)).sum() for a, b in _bonds(grid))
     return _f32(n_like).reshape(1)
 
 

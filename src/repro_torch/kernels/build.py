@@ -2,9 +2,11 @@
 
 Each library is one ``csrc/*.cu`` source with a plain C interface, compiled
 for Hopper (``-gencode arch=compute_90a,code=sm_90a``) into a shared
-library at first use. The build directory is ``kernels/_build/`` beside
-this module (git-ignored), one subdirectory per hash of the sources and
-flags, so an edited source is rebuilt and an unchanged one is not. All
+library at first use; the sources share the building blocks of
+``csrc/tile_staging.cuh``. The build directory is ``kernels/_build/``
+beside this module (git-ignored), one subdirectory per hash of the source,
+the shared headers and the flags, so an edited source or header is rebuilt
+and an unchanged one is not. All
 missing libraries are compiled at once, one ``nvcc`` per source. A failed
 build raises with the compiler's output.
 """
@@ -52,6 +54,8 @@ def _source(name: str) -> Path:
 
 def library_path(name: str) -> Path:
     digest = hashlib.sha256(_source(name).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_ROOT / digest.hexdigest()[:16] / f"lib{name}.so"
 
@@ -113,14 +117,21 @@ def check(lib: ctypes.CDLL, err: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
 
 
+# PyTorch's current stream on a card as a raw pointer, the C call that its
+# generated kernels use: far cheaper per launch than building the
+# torch.cuda.Stream of torch.cuda.current_stream. A build of PyTorch
+# without CUDA lacks it, and has no CUDA tensors to launch on.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+
+
 def launch_args(t: torch.Tensor) -> Tuple[int, ctypes.c_void_p]:
     """(device index, current stream) for a launch on ``t``'s card; a
     tensor that is not on a card raises."""
     if not t.is_cuda:
         raise ValueError(f"the kernels run on CUDA tensors; got a tensor "
                          f"on {t.device}")
-    stream = torch.cuda.current_stream(t.device).cuda_stream
-    return t.device.index or 0, ctypes.c_void_p(stream)
+    index = t.get_device()
+    return index, ctypes.c_void_p(_raw_stream(index))
 
 
 def ptr(t: torch.Tensor) -> ctypes.c_void_p:

@@ -49,62 +49,19 @@
 // count the matching cells of their words four at a time (__vcmpeq4) and
 // the warp sums them, into the block's bins, which the block adds to
 // counts[t] once per step with integer atomics, exact in any order.
+// The staging, its roll-fused load and its store, and the pair rule live in
+// tile_staging.cuh, which K3 (escg_update.cu) shares.
 #include <cooperative_groups.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+
+#include "tile_staging.cuh"
 
 namespace cg = cooperative_groups;
 
 namespace escg {
 
-constexpr int kWarp = 32;
-constexpr unsigned kFull = 0xffffffffu;
-// the dynamic shared memory a block may use: the card's 227 KB a block
-// less the direction table
-constexpr size_t kMaxSmem = 232448 - 16 * sizeof(int);
 // proposals a lane draws ahead of applying them, so that their Philox
 // rounds overlap one another
 constexpr int kBatch = 8;
-
-// Bits 64..95 of the product of a 64-bit a and a 32-bit b: two wide
-// multiplies (the sum cannot carry past 64 bits).
-__device__ __forceinline__ uint32_t mulhi_64x32(uint64_t a, uint32_t b) {
-  const uint64_t lo = (uint64_t)(uint32_t)a * b;
-  return (uint32_t)(((uint64_t)(uint32_t)(a >> 32) * b + (lo >> 32)) >> 32);
-}
-
-// n / d and n % d for a divisor fixed for the launch (Lemire, Kaser and
-// Kurz, "Faster remainder by direct computation", 2019): with
-// m = ceil(2^64 / d) both are exact for every 32-bit n and d.
-struct Divisor {
-  uint64_t m;  // 0 for d = 1
-  uint32_t d;
-  __host__ __device__ explicit Divisor(uint32_t d_ = 1)
-      : m(d_ == 1 ? 0 : ~0ull / d_ + 1), d(d_) {}
-  __device__ __forceinline__ uint32_t div(uint32_t n) const {
-    return d == 1 ? n : mulhi_64x32(m, n);
-  }
-  __device__ __forceinline__ uint32_t mod(uint32_t n) const {
-    return mulhi_64x32(m * n, d);
-  }
-};
-
-struct Rule {
-  float t_eps;     // migration below this action draw
-  float t_eps_mu;  // interaction below this one, reproduction above
-  int nbhd;        // 4 (von Neumann) or 8 (Moore)
-  int n_dom;       // species + 1: side of the padded dominance matrix
-};
-
-// Where the tiles lie and how a block stages them.
-struct Geometry {
-  int H, W, th, tw;
-  int lgw;        // tiles per row of this lattice
-  int n_tiles;
-  int P;          // tiles per block (one per lane)
-  int G;          // 32-bit staging words per tile row
-  Divisor by_G, by_P, by_lgw, interior, iw;
-};
 
 // What a sweep needs besides the tile.
 struct Sweep {
@@ -145,137 +102,6 @@ __device__ __forceinline__ uint4 philox(uint32_t c0, uint32_t c1,
   return make_uint4(c0, c1, c2, c3);
 }
 
-// The staging of a block's P tiles in shared memory, cells of type S packed
-// kPer to a 32-bit word: word (r * G + c / kPer) * P + t holds cells
-// c / kPer * kPer .. + kPer - 1 of row r of tile t, so tile t lies in bank
-// t % 32 whatever cell it touches. Cells past a row's end are padding (-1).
-template <typename S>
-struct Staging {
-  static constexpr int kPer = 4 / (int)sizeof(S);
-  static constexpr int kBits = 8 * (int)sizeof(S);
-  static constexpr int kShift = kPer == 4 ? 2 : (kPer == 2 ? 1 : 0);
-  // index of cell (r, c) of tile t among the block's S-typed cells
-  static __device__ __forceinline__ int at(const Geometry& g, int t, int r,
-                                           int c) {
-    return ((r * g.G + (c >> kShift)) * g.P + t) * kPer + (c & (kPer - 1));
-  }
-  // label v in every cell of a word
-  static __device__ __forceinline__ uint32_t splat(int v) {
-    return (uint32_t)v * (kPer == 4 ? 0x01010101u
-                                    : (kPer == 2 ? 0x00010001u : 1u));
-  }
-  // how many cells of `word` hold the label splatted in `pattern`
-  static __device__ __forceinline__ uint32_t equal(uint32_t word,
-                                                   uint32_t pattern) {
-    if (kPer == 4) return __popc(__vcmpeq4(word, pattern)) >> 3;
-    if (kPer == 2) return __popc(__vcmpeq2(word, pattern)) >> 4;
-    return word == pattern ? 1u : 0u;
-  }
-};
-
-// kPer cells of a lattice row, stored with one access where they are
-// aligned to their size.
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Cells {
-  T v[N];
-};
-
-// Lane t's tile of group `group`: its index (or -1 past the last tile), and
-// the row and column of its first cell in the lattice.
-__device__ __forceinline__ int group_tile(const Geometry& g, int group,
-                                          int lane, int* r0, int* c0) {
-  const int tile = group * g.P + lane;
-  if (lane >= g.P || tile >= g.n_tiles) {
-    *r0 = *c0 = 0;
-    return -1;
-  }
-  const int ti = (int)g.by_lgw.div((uint32_t)tile);
-  *r0 = ti * g.th;
-  *c0 = (tile - ti * g.lgw) * g.tw;
-  return tile;
-}
-
-// Stage the group's tiles from `src` rolled by (-sr, -sc): cell (r, c) of a
-// tile at (r0, c0) is src[(r0 + r + sr) mod H][(c0 + c + sc) mod W]. Lanes
-// walk each tile row kPer cells at a time, tile after tile, so a warp reads
-// runs of consecutive cells.
-template <typename T, typename S>
-__device__ void load_group(const T* src, uint32_t* words, const Geometry& g,
-                           int my_tile, int my_r0, int my_c0, int sr,
-                           int sc) {
-  using St = Staging<S>;
-  const int lane = threadIdx.x;
-  const int row_words = g.P * g.G;
-  for (int u0 = 0; u0 < row_words; u0 += kWarp) {
-    const int u = u0 + lane;
-    const int t = (int)g.by_G.div((uint32_t)u);
-    const int gi = u - t * g.G;
-    const int src_lane = t < kWarp ? t : 0;
-    const int tile = __shfl_sync(kFull, my_tile, src_lane);
-    const int r0 = __shfl_sync(kFull, my_r0, src_lane);
-    const int c0 = __shfl_sync(kFull, my_c0, src_lane);
-    if (u >= row_words || tile < 0) continue;
-    int cols[St::kPer];
-#pragma unroll
-    for (int b = 0; b < St::kPer; ++b) {
-      const int c = c0 + gi * St::kPer + b + sc;
-      cols[b] = c < g.W ? c : c - g.W;
-    }
-#pragma unroll 8
-    for (int r = 0; r < g.th; ++r) {
-      int row = r0 + r + sr;
-      row = row < g.H ? row : row - g.H;
-      const T* line = src + (size_t)row * g.W;
-      uint32_t word = 0;
-#pragma unroll
-      for (int b = 0; b < St::kPer; ++b) {
-        const int v = gi * St::kPer + b < g.tw ? (int)line[cols[b]] : -1;
-        word |= ((uint32_t)v & (0xffffffffu >> (32 - St::kBits)))
-                << (b * St::kBits);
-      }
-      words[(r * g.G + gi) * g.P + t] = word;
-    }
-  }
-}
-
-// Write the group's staged tiles to `dst` in place (no roll), a word's
-// cells with one store where the tile width is a multiple of kPer.
-template <typename T, typename S>
-__device__ void store_group(T* dst, const uint32_t* words, const Geometry& g,
-                            int my_tile, int my_r0, int my_c0) {
-  using St = Staging<S>;
-  using Run = Cells<T, St::kPer>;
-  const int lane = threadIdx.x;
-  const int row_words = g.P * g.G;
-  const bool whole = g.tw % St::kPer == 0;
-  for (int u0 = 0; u0 < row_words; u0 += kWarp) {
-    const int u = u0 + lane;
-    const int t = (int)g.by_G.div((uint32_t)u);
-    const int gi = u - t * g.G;
-    const int src_lane = t < kWarp ? t : 0;
-    const int tile = __shfl_sync(kFull, my_tile, src_lane);
-    const int r0 = __shfl_sync(kFull, my_r0, src_lane);
-    const int c0 = __shfl_sync(kFull, my_c0, src_lane);
-    if (u >= row_words || tile < 0) continue;
-#pragma unroll 8
-    for (int r = 0; r < g.th; ++r) {
-      const uint32_t word = words[(r * g.G + gi) * g.P + t];
-      T* line = dst + (size_t)(r0 + r) * g.W + c0 + gi * St::kPer;
-      Run run;
-#pragma unroll
-      for (int b = 0; b < St::kPer; ++b)
-        run.v[b] = (T)(S)(word >> (b * St::kBits));
-      if (whole) {
-        *reinterpret_cast<Run*>(line) = run;
-      } else {
-#pragma unroll
-        for (int b = 0; b < St::kPer; ++b)
-          if (gi * St::kPer + b < g.tw) line[b] = run.v[b];
-      }
-    }
-  }
-}
-
 // Lane t applies its tile's K proposals in order to the staged cells. It
 // draws kBatch proposals at a time and decodes them into cell indices and
 // uniforms before applying them; the dominance rates are read only when a
@@ -294,7 +120,6 @@ __device__ void sweep_tile(uint32_t* words, const Geometry& g,
   const uint32_t base = tile_id * (uint32_t)sw.k;
   const uint32_t iw = g.iw.d;
   const uint32_t dir_mask = (uint32_t)sw.rule.nbhd - 1u;  // nbhd is 4 or 8
-  const int n_dom = sw.rule.n_dom;
   const Rule rule = sw.rule;
   const PhiloxKeys keys = round_keys(seed0, seed1);
   for (int j0 = 0; j0 < sw.k; j0 += kBatch) {
@@ -316,27 +141,10 @@ __device__ void sweep_tile(uint32_t* words, const Geometry& g,
 #pragma unroll
     for (int u = 0; u < kBatch; ++u) {
       if (j0 + u >= sw.k) break;
-      const int s = (int)cells[at_s[u]];
-      const int n = (int)cells[at_n[u]];
-      const bool migrate = ua[u] < rule.t_eps;
-      const bool interact = (ua[u] >= rule.t_eps) && (ua[u] < rule.t_eps_mu);
-      const bool reproduce = ua[u] >= rule.t_eps_mu;
-      float p1 = 0.f, p2 = 0.f;
-      if (interact) {
-        p1 = __ldg(&sw.dom[s * n_dom + n]);
-        p2 = __ldg(&sw.dom[n * n_dom + s]);
-      }
-      const bool kill_n = interact && (ud[u] < p1);
-      const bool kill_s = interact && !kill_n && (ud[u] < p1 + p2);
-      const bool rep_to_n = reproduce && (n == 0);
-      const bool rep_to_s = reproduce && (s == 0);
-      int new_s = migrate ? n : (kill_s ? 0 : (rep_to_s ? n : s));
-      int new_n = migrate ? s : (kill_n ? 0 : (rep_to_n ? s : n));
-      // a pair of one species is left as it is
-      new_s = s == n ? s : new_s;
-      new_n = s == n ? n : new_n;
-      cells[at_s[u]] = (S)new_s;
-      cells[at_n[u]] = (S)new_n;
+      const int2 next = pair_rule((int)cells[at_s[u]], (int)cells[at_n[u]],
+                                  ua[u], ud[u], rule, sw.dom);
+      cells[at_s[u]] = (S)next.x;
+      cells[at_n[u]] = (S)next.y;
     }
   }
 }
@@ -360,10 +168,6 @@ __device__ void count_group(const uint32_t* words, const Geometry& g,
     n = __reduce_add_sync(kFull, n);
     if (lane == 0) bins[v] += (int)n;
   }
-}
-
-__device__ __forceinline__ void load_dirs(const int* dirs, int* sdirs) {
-  if (threadIdx.x < 16) sdirs[threadIdx.x] = dirs[threadIdx.x];
 }
 
 // K1: one round, one block per group of P tiles, read from `in` rolled by
@@ -434,36 +238,9 @@ __global__ void __launch_bounds__(kWarp)
   }
 }
 
-__host__ inline Geometry make_geometry(int H, int W, int th, int tw,
-                                       int stage_bytes, int P) {
-  Geometry g;
-  g.H = H;
-  g.W = W;
-  g.th = th;
-  g.tw = tw;
-  g.lgw = W / tw;
-  g.n_tiles = (H / th) * g.lgw;
-  g.P = P;
-  g.G = (tw * stage_bytes + 3) / 4;
-  g.by_G = Divisor((uint32_t)g.G);
-  g.by_P = Divisor((uint32_t)P);
-  g.by_lgw = Divisor((uint32_t)g.lgw);
-  g.interior = Divisor((uint32_t)((th - 2) * (tw - 2)));
-  g.iw = Divisor((uint32_t)(tw - 2));
-  return g;
-}
-
 // Dynamic shared memory of a block: the staging, and K2's bins.
 __host__ inline size_t block_smem(const Geometry& g, int n_dom) {
   return ((size_t)g.th * g.G * g.P + (size_t)n_dom) * sizeof(int);
-}
-
-// Check the staging fits and allow the kernel that much shared memory.
-__host__ inline cudaError_t allow_smem(const void* kernel, size_t smem) {
-  if (smem > kMaxSmem) return cudaErrorInvalidValue;
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
 }
 
 template <typename T, typename S>
@@ -527,17 +304,6 @@ int launch_rounds(void* out, void* scratch, const void* in,
   if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
-
-// The (lattice, staging) type pairs: int8 staging for any lattice whose
-// labels fit it, else the lattice's own type.
-#define ESCG_DISPATCH(cell_bytes, stage_bytes, CALL)               \
-  switch ((cell_bytes) * 10 + (stage_bytes)) {                     \
-    case 11: { using T = int8_t; using S = int8_t; return CALL; }   \
-    case 21: { using T = int16_t; using S = int8_t; return CALL; }  \
-    case 41: { using T = int32_t; using S = int8_t; return CALL; }  \
-    case 22: { using T = int16_t; using S = int16_t; return CALL; } \
-    case 44: { using T = int32_t; using S = int32_t; return CALL; } \
-  }
 
 }  // namespace escg
 

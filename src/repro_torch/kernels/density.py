@@ -2,8 +2,10 @@
 
 K4, ``density_counts``: the counts of labels 0..S over an (H, W) lattice,
 (S+1,) int32; labels outside 0..S are not counted. The CUDA kernel is
-``density_kernel`` in ``csrc/density.cu`` (per-block bins in shared
-memory, integer atomics, exact); its plain version is the reference's
+``density_kernel`` in ``csrc/density.cu``: one launch of 16-byte loads,
+counts in registers (shared-memory bins above 16 labels), each block's
+sums added into a scratch buffer that the last block moves into the
+output; integer sums, so exact. Its plain version is the reference's
 one-hot sum.
 
 The wrapper launches the kernel for a CUDA grid and takes the plain
@@ -12,6 +14,7 @@ version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
 from __future__ import annotations
 
 import ctypes
+from typing import Dict, Tuple
 
 import torch
 
@@ -22,15 +25,31 @@ LAUNCHES = {"density_counts": 0}
 _LIB = "density"
 MAX_LABELS = 4096      # the bins live in a block's shared memory
 
+# (device, stream) -> that stream's scratch: the ticket and the
+# MAX_LABELS accumulators, zero between launches (each launch's last block
+# zeroes them again). Launches on one stream run in order, so they share it.
+_SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
+
 
 def _lib() -> ctypes.CDLL:
     lib = build.load(_LIB)
     fn = lib.density_counts
     if fn.argtypes is None:
         i32, ptr = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i32, ptr, ctypes.c_int64, i32, ptr, i32, ptr]
+        fn.argtypes = [i32, ptr, ctypes.c_int64, i32, ptr, ptr, i32, ptr]
         fn.restype = i32
     return lib
+
+
+def _scratch(grid: torch.Tensor, device: int,
+             stream: ctypes.c_void_p) -> torch.Tensor:
+    """The scratch of the launch's stream, made zero at its first use."""
+    key = (device, stream.value or 0)
+    buf = _SCRATCH.get(key)
+    if buf is None:
+        buf = _SCRATCH[key] = torch.zeros(1 + MAX_LABELS, dtype=torch.int32,
+                                          device=grid.device)
+    return buf
 
 
 def density_counts_plain(grid: torch.Tensor, species: int) -> torch.Tensor:
@@ -41,22 +60,26 @@ def density_counts_plain(grid: torch.Tensor, species: int) -> torch.Tensor:
 
 
 def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
-    """Counts per label 0..S of an int8/int16/int32 lattice, (S+1,) int32
-    on the grid's device."""
+    """Counts per label 0..S of a contiguous int8/int16/int32 lattice
+    (any shape; a view that starts inside its storage is fine), (S+1,)
+    int32 on the grid's device."""
     if grid.dtype not in build.CELL_DTYPES:
         raise ValueError(f"grid dtype must be int8/int16/int32, got "
                          f"{grid.dtype}")
+    if not grid.is_contiguous():
+        raise ValueError("density_counts takes a contiguous grid")
     if not 0 <= species < MAX_LABELS:
         raise ValueError(f"species must be in [0, {MAX_LABELS}), got "
                          f"{species}")
     if grid.device.type == "cpu":
         return density_counts_plain(grid, species)
     device, stream = build.launch_args(grid)
+    scratch = _scratch(grid, device, stream)
     out = torch.empty(species + 1, dtype=torch.int32, device=grid.device)
     lib = _lib()
     err = lib.density_counts(grid.element_size(), build.ptr(grid),
                              grid.numel(), species + 1, build.ptr(out),
-                             device, stream)
+                             build.ptr(scratch), device, stream)
     build.check(lib, err, "density_counts launch")
     LAUNCHES["density_counts"] += 1
     return out

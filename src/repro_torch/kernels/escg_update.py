@@ -1,14 +1,18 @@
 """Stream-fed sublattice kernel (port of ``repro.kernels.escg_update``).
 
-K3, ``escg_tile_round``: one round over an already rolled lattice. Tile t
-plays the K proposals of row t of the (T, K) buffers ``cell``, ``dirn``,
-``u_act`` and ``u_dom`` (raster tile order, filled by
-``rng.tile_stream_batch``) in order on its interior. The CUDA kernel is
-``tile_round_kernel`` in ``csrc/escg_update.cu``, one thread per tile; its
-plain version is ``core.sublattice.tile_update`` over all tiles.
+K3, ``escg_tile_round``: one round over the lattice rolled by ``-shift``
+(default none). Tile t plays the K proposals of row t of the (T, K)
+buffers ``cell``, ``dirn``, ``u_act`` and ``u_dom`` (raster tile order,
+filled by ``rng.tile_stream_batch``) in order on its interior, and the
+result stays in the rolled frame. The CUDA kernel is ``tile_round_kernel``
+in ``csrc/escg_update.cu``: K1's shared-memory staging of the tiles (the
+roll fused into their load, ``tile_staging.cuh``), fed with the proposals
+in double-buffered chunks of ``CHUNK`` per tile; ``staging`` sizes it and
+raises for a tile that does not fit. Its plain version is
+``core.sublattice.tile_update`` over all tiles.
 
-The wrapper launches the kernel for a CUDA grid and takes the plain
-version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
+The wrapper launches the kernel for a CUDA grid; for a CPU grid it rolls
+and takes the plain version. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
@@ -20,10 +24,17 @@ import torch
 from ..core import sublattice
 from ..core.rng import ProposalBatch
 from . import build
+from . import escg_update_fused as fused
 
 LAUNCHES = {"escg_tile_round": 0}
 
 _LIB = "escg_update"
+# kChunk and kPad of csrc/escg_update.cu: proposals per tile in a chunk, and
+# the words of padding after each tile's row of a chunk
+CHUNK, CHUNK_PAD = 32, 4
+# shared memory a staged tile's proposals take: two chunk buffers of the
+# four 32-bit fields
+PROPOSAL_BYTES_PER_TILE = 2 * 4 * (CHUNK + CHUNK_PAD) * 4
 
 
 def _lib() -> ctypes.CDLL:
@@ -31,10 +42,20 @@ def _lib() -> ctypes.CDLL:
     fn = lib.escg_tile_round
     if fn.argtypes is None:
         i32, ptr, f32 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        fn.argtypes = [i32, ptr, ptr, i32, i32, i32, i32, i32, ptr, ptr,
-                       ptr, ptr, ptr, i32, ptr, f32, f32, i32, ptr]
+        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
+                       ptr, ptr, ptr, ptr, ptr, i32, ptr, f32, f32, i32, i32,
+                       i32, ptr]
         fn.restype = i32
     return lib
+
+
+def staging(tile_shape: Tuple[int, int], cell_bytes: int,
+            n_dom: int) -> Tuple[int, int]:
+    """``(stage_bytes, tiles_per_block)`` of K3: K1's staging of the tiles
+    (``escg_update_fused.staging``) with room beside each tile for its
+    proposal chunks. Raises ``ValueError`` if not one tile fits."""
+    return fused.staging(tile_shape, cell_bytes, n_dom,
+                         PROPOSAL_BYTES_PER_TILE)
 
 
 def _check(grid: torch.Tensor, cell: torch.Tensor, dirn: torch.Tensor,
@@ -84,28 +105,36 @@ def escg_tile_round(grid: torch.Tensor, cell: torch.Tensor,
                     dirn: torch.Tensor, u_act: torch.Tensor,
                     u_dom: torch.Tensor, dom: torch.Tensor,
                     dirs: torch.Tensor, tile_shape: Tuple[int, int],
-                    t_eps: float, t_eps_mu: float) -> torch.Tensor:
-    """One sublattice round over an already shifted (H, W) grid; returns a
-    new grid. ``cell``/``dirn`` (T, K) int32 and ``u_act``/``u_dom`` (T, K)
-    float32 in raster tile order, with ``cell`` in [0, interior) and
-    ``dirn`` a row of ``dirs``; ``dom`` the padded (S+1, S+1) float32
-    dominance matrix and ``dirs`` the (8, 2) int32 direction table, all on
-    the grid's device."""
+                    t_eps: float, t_eps_mu: float,
+                    shift: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+    """One sublattice round over the (H, W) grid rolled by ``-shift`` (the
+    kernel reads the rolled cells; the default leaves the grid as it is);
+    returns a new grid in the rolled frame. ``cell``/``dirn`` (T, K) int32
+    and ``u_act``/``u_dom`` (T, K) float32 in raster tile order, with
+    ``cell`` in [0, interior) and ``dirn`` a row of ``dirs``; ``dom`` the
+    padded (S+1, S+1) float32 dominance matrix and ``dirs`` the (8, 2)
+    int32 direction table, all on the grid's device."""
     k = _check(grid, cell, dirn, u_act, u_dom, tile_shape)
     build.check_tables(grid, dom, dirs)
+    dy, dx = int(shift[0]), int(shift[1])
     if grid.device.type == "cpu":
+        if dy or dx:
+            grid = torch.roll(grid, (-dy, -dx), (0, 1))
         return escg_tile_round_plain(grid, cell, dirn, u_act, u_dom, dom,
                                      tile_shape, t_eps, t_eps_mu)
+    stage, per_block = staging(tile_shape, grid.element_size(),
+                               dom.shape[0])
     device, stream = build.launch_args(grid)
     h, w = grid.shape
     th, tw = tile_shape
     out = torch.empty_like(grid)
     lib = _lib()
     err = lib.escg_tile_round(
-        grid.element_size(), build.ptr(out), build.ptr(grid), h, w, th, tw,
-        int(k), build.ptr(cell), build.ptr(dirn), build.ptr(u_act),
-        build.ptr(u_dom), build.ptr(dom), dom.shape[0], build.ptr(dirs),
-        float(t_eps), float(t_eps_mu), device, stream)
+        grid.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(grid), h, w, th, tw, int(k), build.ptr(cell),
+        build.ptr(dirn), build.ptr(u_act), build.ptr(u_dom), build.ptr(dom),
+        dom.shape[0], build.ptr(dirs), float(t_eps), float(t_eps_mu),
+        dy % h, dx % w, device, stream)
     build.check(lib, err, "escg_tile_round launch")
     LAUNCHES["escg_tile_round"] += 1
     return out

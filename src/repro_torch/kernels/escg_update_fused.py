@@ -87,22 +87,24 @@ def _geometry(grid: torch.Tensor, tile_shape: Tuple[int, int],
     return h, w, th, tw, gh, gw, int(grid_tiles_w)
 
 
-def staging(tile_shape: Tuple[int, int], cell_bytes: int,
-            n_dom: int) -> Tuple[int, int]:
+def staging(tile_shape: Tuple[int, int], cell_bytes: int, n_dom: int,
+            per_tile_bytes: int = 0) -> Tuple[int, int]:
     """``(stage_bytes, tiles_per_block)`` of the kernels' shared-memory
     staging: cells as int8 where labels 0..n_dom-1 fit it, else in the
     lattice's ``cell_bytes``, rows padded to 32-bit words, and as many
-    tiles a block as fit beside K2's ``n_dom`` bins, at most 32. Raises
-    ``ValueError`` if not one tile fits."""
+    tiles a block as fit beside K2's ``n_dom`` bins, each with
+    ``per_tile_bytes`` more beside it (K3's proposal chunks), at most 32.
+    Raises ``ValueError`` if not one tile fits."""
     th, tw = tile_shape
     stage = 1 if n_dom <= 128 else cell_bytes
     tile_bytes = 4 * th * -(-tw * stage // 4)
-    per_block = (SMEM_BYTES - 4 * n_dom) // tile_bytes
+    per_block = (SMEM_BYTES - 4 * n_dom) // (tile_bytes + per_tile_bytes)
     if per_block < 1:
         raise ValueError(
             f"tile {tuple(tile_shape)} staged in {stage}-byte cells takes "
-            f"{tile_bytes} bytes of shared memory with {4 * n_dom} for the "
-            f"counts; a block has {SMEM_BYTES}: use a smaller tile")
+            f"{tile_bytes} bytes of shared memory and {per_tile_bytes} more "
+            f"beside it, with {4 * n_dom} for the counts; a block has "
+            f"{SMEM_BYTES}: use a smaller tile")
     return stage, min(TILES_PER_BLOCK, per_block)
 
 

@@ -1,6 +1,6 @@
 """Launch wrappers around the kernels (port of ``repro.kernels.ops``): the
-torus roll stays outside K3, as the reference keeps it outside its Pallas
-calls, and is fused into the tile loads of K1 and K2.
+torus roll, which the reference keeps outside its Pallas calls, is fused
+into the tile loads of K1, K2 and K3.
 ``launches``/``reset_launches`` read and clear every kernel's launch
 count."""
 from __future__ import annotations
@@ -42,13 +42,13 @@ def escg_round(grid: torch.Tensor, props: ProposalBatch,
                tile_shape: Tuple[int, int], t_eps: float, t_eps_mu: float,
                roll_back: bool = True) -> torch.Tensor:
     """Stream-fed sublattice round, the kernel twin of
-    ``sublattice.run_round``: roll by ``-shift``, one K3 launch with the
-    (T, K) proposals, and roll back unless ``roll_back=False``."""
+    ``sublattice.run_round``: one K3 launch with the (T, K) proposals that
+    reads the grid rolled by ``-shift``, and a roll back unless
+    ``roll_back=False`` (the engines let the frame drift)."""
     dy, dx = int(shift[0]), int(shift[1])
-    g = torch.roll(grid, (-dy, -dx), (0, 1))
-    g = escg_kernel.escg_tile_round(g, props.cell, props.dirn, props.u_act,
-                                    props.u_dom, dom, dirs, tile_shape,
-                                    t_eps, t_eps_mu)
+    g = escg_kernel.escg_tile_round(grid, props.cell, props.dirn,
+                                    props.u_act, props.u_dom, dom, dirs,
+                                    tile_shape, t_eps, t_eps_mu, (dy, dx))
     if roll_back:
         g = torch.roll(g, (dy, dx), (0, 1))
     return g

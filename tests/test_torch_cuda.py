@@ -165,36 +165,65 @@ def test_tile_streams_on_the_card_equal_the_host(cuda):
         assert g.is_cuda and torch.equal(g.cpu(), w)
 
 
+# (lattice, tile, proposals per tile, shift): the first is the original
+# case; the others have partial groups of the 32 tiles a block stages, K
+# other than th * tw (odd, so copied 4 bytes at a time) and below one
+# chunk of the proposal stream, and shifts 1, H - 1 and W - 1
+STREAM_CASES = [
+    ((64, 128), (8, 16), 64, (0, 0)),
+    ((72, 56), (8, 8), 64, (1, 1)),
+    ((72, 56), (8, 8), 57, (71, 0)),
+    ((72, 112), (8, 16), 128, (0, 111)),
+    ((72, 112), (8, 16), 5, (1, 111)),
+    ((72, 224), (8, 32), 256, (71, 223)),
+    ((72, 224), (8, 32), 249, (3, 5)),
+    ((144, 224), (16, 32), 512, (0, 0)),
+    ((144, 224), (16, 32), 3, (143, 1)),
+]
+
+
+@pytest.mark.parametrize("hw,tile,k,shift", STREAM_CASES)
 @pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
                                         (torch.int16, 4)])
-def test_stream_round_kernel_equals_plain(cuda, dtype, nbhd):
-    grid = _grid(cuda, 5, dtype)
+def test_stream_round_kernel_equals_plain(cuda, dtype, nbhd, hw, tile, k,
+                                          shift):
+    """K3 (with the roll fused into its tile load) against ``torch.roll``
+    followed by the plain K3."""
+    grid = lattice.init_grid(threefry.PRNGKey(1), *hw, 5, 0.1, dtype=dtype,
+                             device=cuda)
     dom, dirs = _tables(5, cuda)
+    n_tiles = (hw[0] // tile[0]) * (hw[1] // tile[1])
     props = rng.tile_stream_batch(threefry.PRNGKey(3).to(cuda),
-                                  torch.arange(64, device=cuda), 64, 84,
-                                  nbhd)
+                                  torch.arange(n_tiles, device=cuda), k,
+                                  (tile[0] - 2) * (tile[1] - 2), nbhd)
     before = escg_update.LAUNCHES["escg_tile_round"]
-    got = escg_update.escg_tile_round(grid, *props, dom, dirs, (8, 16), 0.25,
-                                      0.6)
-    want = escg_update.escg_tile_round_plain(grid, *props, dom, (8, 16),
-                                             0.25, 0.6)
+    got = escg_update.escg_tile_round(grid, *props, dom, dirs, tile, 0.25,
+                                      0.6, shift)
+    want = escg_update.escg_tile_round_plain(
+        torch.roll(grid, (-shift[0], -shift[1]), (0, 1)), *props, dom, tile,
+        0.25, 0.6)
     torch.cuda.synchronize()
     assert escg_update.LAUNCHES["escg_tile_round"] == before + 1
     assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("dtype", [torch.int32, torch.int8, torch.int16])
-@pytest.mark.parametrize("species", [3, 5])
-def test_density_kernel_equals_plain(cuda, dtype, species):
-    g = torch.randint(-1, species + 3, (300, 257), generator=torch.Generator()
-                      .manual_seed(species)).to(dtype).to(cuda)
-    got = density.density_counts(g, species)
-    want = density.density_counts_plain(g, species)
-    torch.cuda.synchronize()
-    assert got.dtype == torch.int32 and torch.equal(got, want)
-    valid = g[(g >= 0) & (g <= species)].long()
-    assert torch.equal(got.long(), torch.bincount(valid,
-                                                  minlength=species + 1))
+@pytest.mark.parametrize("species", [3, 5, 15, 16, 40])
+@pytest.mark.parametrize("n", [0, 1, 31, 4099, 300 * 257])
+def test_density_kernel_equals_plain(cuda, dtype, species, n):
+    """K4 on both sides of its 16 register bins, over ragged lengths, with
+    labels outside 0..S, and on a contiguous view that starts one cell in
+    (not 16-byte aligned)."""
+    x = torch.randint(-2, species + 4, (n + 1,), generator=torch.Generator()
+                      .manual_seed(species + n)).to(dtype).to(cuda)
+    for g in (x[:n], x[1:]):
+        got = density.density_counts(g, species)
+        want = density.density_counts_plain(g, species)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.int32 and torch.equal(got, want)
+        valid = g[(g >= 0) & (g <= species)].long()
+        assert torch.equal(got.long(), torch.bincount(
+            valid, minlength=species + 1))
 
 
 @pytest.mark.parametrize("n", [0, 1, 4099, 1 << 20])

@@ -251,12 +251,14 @@ def test_staging_sizes(tile, cell_bytes, n_dom, want):
     assert per_block * tile[0] * row_bytes + 4 * n_dom <= fused.SMEM_BYTES
 
 
-@pytest.mark.parametrize("kernel", ["K1", "K2"])
+@pytest.mark.parametrize("kernel", ["K1", "K2", "K3"])
 def test_oversize_tile_raises_before_launch(kernel):
     """A tile the staging cannot hold raises ``ValueError`` in the wrapper
     before the card is touched (a meta tensor reaches no launch)."""
     with pytest.raises(ValueError, match="shared memory"):
         fused.staging((256, 256), 4, 200)
+    with pytest.raises(ValueError, match="shared memory"):
+        escg_update.staging((256, 256), 4, 200)
     grid = torch.zeros((1024, 1024), dtype=torch.int8, device="meta")
     dom = torch.zeros((4, 4), dtype=torch.float32, device="meta")
     dirs = torch.zeros((8, 2), dtype=torch.int32, device="meta")
@@ -264,10 +266,16 @@ def test_oversize_tile_raises_before_launch(kernel):
         if kernel == "K1":
             fused.escg_tile_round_fused(grid, (1, 2), 0, dom, dirs,
                                         (512, 512), 8, 0.2, 0.5)
-        else:
+        elif kernel == "K2":
             sched = torch.zeros((2, 2), dtype=torch.int64, device="meta")
             fused.escg_tile_rounds_fused(grid, sched, sched, dom, dirs,
                                          (512, 512), 8, 0.2, 0.5, 3)
+        else:
+            props = [torch.zeros((4, 8), dtype=dt, device="meta")
+                     for dt in (torch.int32, torch.int32, torch.float32,
+                                torch.float32)]
+            escg_update.escg_tile_round(grid, *props, dom, dirs, (512, 512),
+                                        0.2, 0.5)
 
 
 class _RecordingLib:
@@ -411,25 +419,79 @@ def test_plain_stream_round_matches_oracle(hw, tile, species, nbhd, dtype):
     assert ops.launches()["escg_tile_round"] == 0
 
 
+@pytest.mark.parametrize("shift", [(5, 11), (0, 0), (1, 1), (7, 15)])
 @pytest.mark.parametrize("roll_back", [True, False])
-def test_escg_round_matches_reference_run_round(roll_back):
-    """``ops.escg_round`` (roll, K3, optional roll-back) against the
-    reference's plain round, which its Pallas ``ops.escg_round`` must
-    equal."""
+def test_escg_round_matches_reference_run_round(roll_back, shift):
+    """``ops.escg_round`` (K3 with the shift fused into its tile load, then
+    the optional roll-back) against the reference's plain round, which its
+    Pallas ``ops.escg_round`` must equal; shifts 0, 1 and (th - 1,
+    tw - 1) of the (8, 16) tile besides (5, 11)."""
     grid = _grid(16, 32, 3, seed=8)
     dom = _dom(3)
     props = _stream_props(4, 40, 84, 4, 9)
     want = jsublattice.run_round(
         jnp.asarray(grid.numpy()), jrng.ProposalBatch(*map(jnp.asarray,
                                                            props)),
-        jnp.asarray([5, 11], jnp.int32), (8, 16), 0.3, 0.65,
+        jnp.asarray(shift, jnp.int32), (8, 16), 0.3, 0.65,
         jnp.asarray(dom), roll_back=roll_back)
     got = ops.escg_round(grid, rng.ProposalBatch(*map(torch.from_numpy,
                                                       props)),
-                         (5, 11), torch.from_numpy(dom),
+                         shift, torch.from_numpy(dom),
                          torch.as_tensor(lattice.DIRS), (8, 16), 0.3, 0.65,
                          roll_back=roll_back)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+@pytest.mark.parametrize("dtype,nbhd", [("int32", 4), ("int8", 8),
+                                        ("int16", 4)])
+@pytest.mark.parametrize("shift", [(0, 0), (1, 1), (15, 31), (1, 31),
+                                   (-3, 40)])
+def test_stream_round_shift_is_roll_then_plain(shift, dtype, nbhd):
+    """The K3 wrapper given a shift (which its kernel fuses into the tile
+    load) equals ``torch.roll`` by ``-shift`` followed by the plain K3,
+    and launches nothing on the CPU."""
+    grid = _grid(16, 32, 5, dtype, seed=10)
+    dom = torch.from_numpy(_dom(5))
+    props = [torch.from_numpy(a) for a in _stream_props(4, 61, 84, nbhd, 2)]
+    want = escg_update.escg_tile_round_plain(
+        torch.roll(grid, (-shift[0], -shift[1]), (0, 1)), *props, dom,
+        (8, 16), 0.25, 0.6)
+    ops.reset_launches()
+    got = escg_update.escg_tile_round(grid, *props, dom,
+                                      torch.as_tensor(lattice.DIRS), (8, 16),
+                                      0.25, 0.6, shift)
+    assert got.dtype == grid.dtype and torch.equal(got, want)
+    assert ops.launches()["escg_tile_round"] == 0
+
+
+@pytest.mark.parametrize("tile,cell_bytes,n_dom,want", [
+    ((8, 32), 4, 4, (1, 32)),          # park3's stream-fed path
+    ((16, 32), 1, 6, (1, 32)),
+    ((5, 7), 2, 4, (1, 32)),
+    ((64, 64), 4, 200, (4, 13)),       # int32 staging, fewer tiles a block
+])
+def test_stream_staging_sizes(tile, cell_bytes, n_dom, want):
+    """K3 stages its tiles as K1 does, with its double-buffered proposal
+    chunks beside each tile: both fit a block's shared memory."""
+    stage, per_block = escg_update.staging(tile, cell_bytes, n_dom)
+    assert (stage, per_block) == want
+    row_bytes = 4 * -(-tile[1] * stage // 4)
+    assert escg_update.PROPOSAL_BYTES_PER_TILE == \
+        2 * 4 * (escg_update.CHUNK + escg_update.CHUNK_PAD) * 4
+    per_tile = tile[0] * row_bytes + escg_update.PROPOSAL_BYTES_PER_TILE
+    assert per_block * per_tile + 4 * n_dom <= fused.SMEM_BYTES
+    if per_block < fused.TILES_PER_BLOCK:
+        assert (per_block + 1) * per_tile + 4 * n_dom > fused.SMEM_BYTES
+
+
+def test_stream_chunk_constants_match_source():
+    """The chunk and padding the wrapper sizes shared memory with are the
+    kernel's ``kChunk`` and ``kPad``."""
+    src = (Path(build.CSRC) / "escg_update.cu").read_text()
+    consts = dict(re.findall(r"constexpr int (kChunk|kPad) = (\d+);", src))
+    assert (int(consts["kChunk"]), int(consts["kPad"])) == \
+        (escg_update.CHUNK, escg_update.CHUNK_PAD)
+
 
 
 def test_stream_round_rejects_bad_input():
@@ -494,6 +556,23 @@ def test_lattice_counts_go_through_the_density_wrapper():
         ops.density_counts(grid.long(), 5)
     with pytest.raises(ValueError, match="CUDA"):
         ops.density_counts(grid.to("meta"), 5)
+
+
+@pytest.mark.parametrize("view", ["transposed", "strided", "meta"])
+def test_density_rejects_a_non_contiguous_grid(view):
+    """K4 reads a contiguous run of cells: a view that is not one raises
+    ``ValueError``, on the CPU as on the card, while a contiguous view
+    that starts inside its storage is counted like a copy."""
+    grid = _grid(24, 40, 5, "int16", seed=3)
+    bad = {"transposed": grid.t(), "strided": grid[:, ::2],
+           "meta": grid.to("meta")[:, 1:]}[view]
+    with pytest.raises(ValueError, match="contiguous"):
+        ops.density_counts(bad, 5)
+    inner = grid.reshape(-1)[1:]
+    assert inner.is_contiguous() and inner.storage_offset() == 1
+    np.testing.assert_array_equal(
+        ops.density_counts(inner, 5).numpy(),
+        density.density_counts_plain(inner.clone(), 5).numpy())
 
 
 # ------------------------- K5: plain version ----------------------------- #

@@ -263,6 +263,42 @@ def test_park3_declared_observables_stream(engine):
                                       want.observables[name])
 
 
+def test_pallas_engine_fuses_its_shift_into_k3(monkeypatch):
+    """Each MCS of the ``pallas`` engine is one K3 call given that MCS's
+    torus shift, the schedule's; no ``torch.roll`` runs on the path outside
+    K3's wrapper (whose CPU stand-in for the fused load is the only one),
+    the park3 observables included."""
+    from repro_torch.kernels import escg_update
+    real_round, real_roll = escg_update.escg_tile_round, torch.roll
+    shifts, outside, inside = [], [0], [False]
+
+    def recording_round(*args, **kwargs):
+        shifts.append(tuple(args[10]))      # ops.escg_round's shift
+        inside[0] = True
+        try:
+            return real_round(*args, **kwargs)
+        finally:
+            inside[0] = False
+
+    def counted_roll(*args, **kwargs):
+        outside[0] += not inside[0]
+        return real_roll(*args, **kwargs)
+    monkeypatch.setattr(escg_update, "escg_tile_round", recording_round)
+    monkeypatch.setattr(torch, "roll", counted_roll)
+    scenario = make_scenario("park3")
+    run = RunConfig(length=32, height=32, mcs=4, chunk_mcs=2)
+    res = simulate(scenario, engine=EngineConfig(engine="pallas",
+                                                 tile=(8, 16)),
+                   run=run, stop_on_stasis=False, device="cpu")
+    assert set(res.observables) == {"densities", "interface_length"}
+    p = compose(scenario, EngineConfig(engine="pallas", tile=(8, 16)), run)
+    key = threefry.split(threefry.PRNGKey(run.seed))[0]   # after grid0
+    want = [tuple(int(v) for v in s) for s in
+            engines.build(p, device="cpu").schedule(key, 4)[2]]
+    assert shifts == want and any(s != (0, 0) for s in shifts)
+    assert outside[0] == 0
+
+
 @pytest.mark.parametrize("engine", ["pallas", "sublattice"])
 def test_stasis_truncates_streams_like_reference(engine):
     """One species is stasis at the first MCS: ``stasis_mcs`` and the
