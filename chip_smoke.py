@@ -3,16 +3,19 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5)
-from ``src/repro_torch/kernels/csrc``, holds each against its plain
-PyTorch version on the card (K1, K2 and K3 also at the edges of their
-shared-memory staging: every lattice type, both neighbourhoods, four
+Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5
+and S1) from ``src/repro_torch/kernels/csrc``, holds each against its
+plain PyTorch version on the card (K1, K2 and K3 also at the edges of
+their shared-memory staging: every lattice type, both neighbourhoods, four
 tiles, partial blocks of tiles, K other than th * tw, fused shifts; K4
 over lattice types, label counts on both sides of its register bins,
-labels outside 0..S, ragged lengths and a misaligned view), reproduces
-``tests/golden/fused_trajectory.json`` through ``simulate`` on the card,
-and drives the port's paths through the entry points a user calls, each
-with the launch counts set to 0 just before it and read just after:
+labels outside 0..S, ragged lengths and a misaligned view; S1 over
+lattice types, neighbourhoods, boundaries and ``drop_conflicts``, and
+against ``batched.run_proposals`` at 3200 x 3200), reproduces
+``tests/golden/fused_trajectory.json`` and
+``tests/golden/reference_trajectory.json`` through ``simulate`` on the
+card, and drives the port's paths through the entry points a user calls,
+each with the launch counts set to 0 just before it and read just after:
 
 * park3 at 3200 x 3200 on the ``pallas_fused`` engine, ``k_mcs`` 1 and 10
   (K1, K2, K4), and again with every observable on;
@@ -20,7 +23,11 @@ with the launch counts set to 0 just before it and read just after:
   declared observables (K3, K4, no ``torch.roll``), held to the plain
   ``sublattice`` engine;
 * bulk Philox words and uniforms, ``ops.philox_bits``/``philox_uniform``
-  (K5).
+  (K5);
+* park3 at 3200 x 3200 on the default ``batched`` engine, observables off
+  and declared (K4 only), held to the CPU at 800 x 800;
+* park3 at 1600 x 1600 on the sequential ``reference`` engine for one MCS
+  (S1, K4).
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -38,6 +45,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "fused_trajectory.json")
+REF_GOLDEN = os.path.join(HERE, "tests", "golden",
+                          "reference_trajectory.json")
 
 SIDE, TILE, MCS, CHUNK = 3200, (8, 32), 200, 100
 K_MCS = 10
@@ -76,6 +85,16 @@ OPS_PER_COUNTED_CELL = 6
 # key additions = 60, the counter and the store 2.
 OPS_PER_COUNTER = 62
 K5_WORDS = 1 << 26
+# S1's cases: a 64 x 64 lattice with a whole and a ragged number of
+# proposals; the lattice of the reference path (one MCS of N proposals),
+# 1600 x 1600: at 3200 x 3200 one MCS is 10.24 M sequential steps, some
+# 6 s on the card and more in the host loop it is held to
+S1_SIDE, S1_PROPS = 64, (4096, 4097)
+REF_SIDE = 1600
+# S1 per step: 4 proposal fields and the two cells it reads and writes
+OPS_PER_SCAN_STEP = 40
+# the batched path held to the CPU at this side for this many MCS
+BATCHED_CPU_SIDE, BATCHED_CPU_MCS = 800, 3
 ALL_OBS = ("densities", "interface_length", "cluster_size", "snapshot")
 
 
@@ -204,12 +223,14 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
-    from repro_torch.core import engines, lattice, rng, threefry
+    from repro_torch.core import batched, dominance, engines, lattice, rng
+    from repro_torch.core import threefry
     from repro_torch.core import observables as obs
     from repro_torch.core.scenarios import (EngineConfig, RunConfig,
                                             compose, make_scenario)
     from repro_torch.core.simulation import simulate
     from repro_torch.kernels import build, density, escg_update, ops, philox
+    from repro_torch.kernels import reference_scan
     from repro_torch.kernels import escg_update_fused as fused
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
@@ -713,7 +734,195 @@ def main():
               f"{bnd / ms:.3f} of the bound's time; library call: "
               f"{lib_note}; {card}")
 
-    # ---- 15. the kernel table ----
+    # ---- 15. [S1] the sequential scan against its plain version ----
+    s1_err = 0.0
+    for dtype, nbhd, flux, drop, n_props in itertools.product(
+            (torch.int8, torch.int16, torch.int32), (4, 8), (True, False),
+            (False, True), S1_PROPS):
+        g = grid_on_card(S1_SIDE, 5, dtype, 5)
+        props = rng.proposal_batch(threefry.PRNGKey(n_props + nbhd),
+                                   n_props, S1_SIDE * S1_SIDE, nbhd,
+                                   device=dev)
+        ga, ka = reference_scan.reference_scan(g, *props, dom5, dirs, 0.25,
+                                               0.6, flux, drop)
+        gb, kb = reference_scan.reference_scan_plain(g, *props, dom5, 0.25,
+                                                     0.6, flux, drop)
+        torch.cuda.synchronize()
+        check(ga.dtype == dtype and (int(ka) < n_props) == drop,
+              f"S1 returned {ga.dtype}, kept {int(ka)} of {n_props}")
+        s1_err = max(s1_err, max_err(torch, ga, gb),
+                     abs(int(ka) - int(kb)))
+    print(f"[S1] {S1_SIDE}x{S1_SIDE}, {S1_PROPS} proposals, int8, int16, "
+          f"int32, nbhd 4, 8, flux True, False, drop_conflicts False, "
+          f"True: max_abs_err {s1_err} (grid and kept) against the host "
+          f"loop")
+    n_window = p.n_cells // engines._pick_sub_batches(p.n_cells)
+    window = rng.proposal_batch(threefry.PRNGKey(6), n_window, p.n_cells, 4,
+                                device=dev)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    ga, ka = reference_scan.reference_scan(g_main, *window, dom, dirs, te,
+                                           tem, True, True)
+    stop.record()
+    gb, kb = batched.run_proposals(g_main, window, te, tem, dom, True)
+    torch.cuda.synchronize()
+    window_ms = start.elapsed_time(stop)
+    err = max(max_err(torch, ga, gb), abs(int(ka) - int(kb)))
+    s1_err = max(s1_err, err)
+    print(f"[S1] {SIDE}x{SIDE} one batched window of {n_window} proposals: "
+          f"S1 with drop_conflicts against batched.run_proposals on the "
+          f"card: max_abs_err {err} (grid and kept), kept {int(ka)}; S1 "
+          f"{window_ms:.1f} ms ({window_ms / n_window * 1e6:.1f} ns per "
+          f"step)")
+    g_ref = grid_on_card(REF_SIDE, 3, torch.int32, 0)
+    n_ref = REF_SIDE * REF_SIDE
+    ref_props = rng.proposal_batch(threefry.PRNGKey(8), n_ref, n_ref, 4,
+                                   device=dev)
+    torch.cuda.synchronize()
+    start.record()
+    ga, ka = reference_scan.reference_scan(g_ref, *ref_props, dom, dirs, te,
+                                           tem, True)
+    stop.record()
+    torch.cuda.synchronize()
+    s1_ms = start.elapsed_time(stop)
+    t0 = time.perf_counter()
+    gb, kb = reference_scan.reference_scan_plain(g_ref, *ref_props, dom, te,
+                                                 tem, True)
+    torch.cuda.synchronize()
+    s1_plain = (time.perf_counter() - t0) * 1e3
+    err = max(max_err(torch, ga, gb), abs(int(ka) - int(kb)))
+    s1_err = max(s1_err, err)
+    print(f"[S1] {REF_SIDE}x{REF_SIDE} one MCS of {n_ref} proposals (the "
+          f"reference path's shape): max_abs_err {err} against the host "
+          f"loop; S1 {s1_ms:.1f} ms ({s1_ms / n_ref * 1e6:.1f} ns per "
+          f"step), host loop {s1_plain:.1f} ms")
+    check(s1_err == 0.0, f"S1 disagrees ({s1_err})")
+    n_l1 = 1 << 20
+    l1_props = rng.proposal_batch(threefry.PRNGKey(9), n_l1,
+                                  S1_SIDE * S1_SIDE, 4, device=dev)
+    g_l1 = grid_on_card(S1_SIDE, 3, torch.int32, 9)
+    l1_ms = event_ms(torch, lambda: reference_scan.reference_scan(
+        g_l1, *l1_props, dom, dirs, te, tem, True), 3)
+    print(f"[S1] latency floor: {l1_ms / n_l1 * 1e6:.1f} ns per step with "
+          f"the {S1_SIDE}x{S1_SIDE} lattice in L1 ({n_l1} proposals), "
+          f"against {s1_ms / n_ref * 1e6:.1f} ns at {REF_SIDE}x{REF_SIDE} "
+          f"and {window_ms / n_window * 1e6:.1f} ns at {SIDE}x{SIDE}")
+
+    # ---- 16. [golden] the reference golden through simulate ----
+    with open(REF_GOLDEN) as f:
+        want = json.load(f)
+    cfg = want["params"]
+    hashes = []
+    ops.reset_launches()
+    res = simulate(make_scenario("nspecies3", mobility=cfg["mobility"],
+                                 empty=cfg["empty"]), dominance.RPS(),
+                   engine=EngineConfig(engine="reference"),
+                   run=RunConfig(length=cfg["length"], height=cfg["height"],
+                                 mcs=cfg["mcs"], chunk_mcs=cfg["chunk_mcs"],
+                                 seed=cfg["seed"], observables=()),
+                   stop_on_stasis=False,
+                   hooks=[lambda m, g, c: hashes.append(grid_hash(g))])
+    check(ops.launches()["reference_scan"] == cfg["mcs"],
+          f"the reference golden did not run through S1: {ops.launches()}")
+    check(hashes == want["grid_hashes"], "reference golden hashes differ")
+    check(np.array_equal(res.densities, np.asarray(want["densities"])),
+          "reference golden densities differ")
+    check(hashlib.sha256(res.grid.astype("<i4").tobytes()).hexdigest()
+          == want["final_hash"], "reference golden final hash differs")
+    check(res.kept_fraction == want["kept_fraction"],
+          f"reference golden kept_fraction {res.kept_fraction}")
+    print("[golden] tests/golden/reference_trajectory.json reproduced on "
+          "the card through S1: 5 grid hashes, densities, final hash, "
+          f"kept_fraction {res.kept_fraction}")
+
+    # ---- 17. [batched] park3 on the default engine ----
+    batched_runs = {}
+    for label, observables in (("off", ()), ("declared", None)):
+        stamps = []
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        r = simulate(park3, engine=EngineConfig(engine="batched"),
+                     run=RunConfig(length=SIDE, height=SIDE, mcs=MCS,
+                                   chunk_mcs=CHUNK, observables=observables),
+                     hooks=[lambda m, g, c: stamps.append(
+                         time.perf_counter())])
+        wall = time.perf_counter() - t0
+        launches[f"batched_{label}"] = counted = ops.launches()
+        batched_runs[label] = r
+        check(counted["density_counts"] == MCS + 1
+              and sum(counted.values()) == MCS + 1,
+              f"the batched path ran other kernels than K4: {counted}")
+        check(r.grid.shape == (SIDE, SIDE) and r.mcs_completed == MCS
+              and r.densities.shape == (MCS + 1, 4)
+              and np.abs(r.densities.sum(axis=1) - 1.0).max() < 1e-12
+              and 0.0 < r.kept_fraction < 1.0,
+              f"the batched path's result is malformed (kept_fraction "
+              f"{r.kept_fraction})")
+        batched_ms = (stamps[1] - stamps[0]) / CHUNK * 1e3
+        print(f"[batched] park3 {SIDE}x{SIDE} {MCS} MCS, observables "
+              f"{label}: {wall:.3f}s incl. set-up; second chunk "
+              f"{batched_ms:.4f} ms/MCS; launches {counted}; kept_fraction "
+              f"{r.kept_fraction!r}; streams {sorted(r.observables)}; final "
+              f"densities {r.densities[-1].tolist()}")
+    check(np.array_equal(batched_runs["off"].grid,
+                         batched_runs["declared"].grid)
+          and np.array_equal(batched_runs["off"].densities,
+                             batched_runs["declared"].densities)
+          and set(batched_runs["declared"].observables)
+          == {"densities", "interface_length"},
+          "batched: observables on differ from off")
+    small = {where: simulate(
+        park3, run=RunConfig(length=BATCHED_CPU_SIDE, height=BATCHED_CPU_SIDE,
+                             mcs=BATCHED_CPU_MCS, observables=()),
+        device=on) for where, on in (("card", dev), ("host", "cpu"))}
+    n_small = BATCHED_CPU_MCS * BATCHED_CPU_SIDE ** 2
+    kept = {w: round(r.kept_fraction * n_small) for w, r in small.items()}
+    check(grid_hash(torch.from_numpy(small["card"].grid))
+          == grid_hash(torch.from_numpy(small["host"].grid))
+          and kept["card"] == kept["host"],
+          f"batched on the card differs from the CPU (kept {kept})")
+    print(f"[batched] park3 {BATCHED_CPU_SIDE}x{BATCHED_CPU_SIDE} "
+          f"{BATCHED_CPU_MCS} MCS on the default engine: the card equals "
+          f"the CPU (grid hash, kept {kept['card']} of {n_small})")
+
+    # ---- 18. [reference] park3 on the sequential engine ----
+    stamps = []
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    r = simulate(park3, engine=EngineConfig(engine="reference"),
+                 run=RunConfig(length=REF_SIDE, height=REF_SIDE, mcs=1,
+                               observables=()),
+                 hooks=[lambda m, g, c: stamps.append(time.perf_counter())])
+    launches["reference"] = ops.launches()
+    check(launches["reference"]["reference_scan"] == 1
+          and launches["reference"]["density_counts"] == 2
+          and sum(launches["reference"].values()) == 3,
+          f"the reference path did not run through S1 and K4: "
+          f"{launches['reference']}")
+    check(r.grid.shape == (REF_SIDE, REF_SIDE) and r.kept_fraction == 1.0
+          and r.densities.shape == (2, 4)
+          and np.abs(r.densities.sum(axis=1) - 1.0).max() < 1e-12,
+          "the reference path's result is malformed")
+    print(f"[reference] park3 {REF_SIDE}x{REF_SIDE} 1 MCS: "
+          f"{(stamps[0] - t0) * 1e3:.1f} ms/MCS incl. set-up; launches "
+          f"{launches['reference']}; final densities "
+          f"{r.densities[-1].tolist()}")
+
+    # S1's bound: each proposal read once (16 bytes), the lattice read once
+    # and written once
+    s1_bound, s1_by = bound(16 * n_ref + 2 * g_ref.element_size() * n_ref,
+                            n_ref * OPS_PER_SCAN_STEP)
+    print(f"[time] S1: {s1_ms:.1f} ms per launch ({n_ref} proposals, "
+          f"{REF_SIDE}x{REF_SIDE}), plain (the host loop) {s1_plain:.1f} ms, "
+          f"bound {s1_bound * 1e3:.1f} us by {s1_by}, {s1_bound / s1_ms:.2e} "
+          f"of the bound's time; the steps are one chain of dependent loads "
+          f"and stores, {l1_ms / n_l1 * 1e6:.1f} ns per step with the "
+          f"lattice in L1; library call: none computes a sequential scan; "
+          f"{card}")
+
+    # ---- 19. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,
@@ -744,6 +953,12 @@ def main():
          "launches": launches["philox"]["philox_bits"],
          "max_abs_err": k5_err, "ms": k5_ms, "plain_ms": k5_plain,
          "bound_ms": k5_bound, "bound_by": k5_by, "library_ms": None},
+        {"name": "reference_scan", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/reference_scan.cu",
+         "replaces": "src/repro/core/reference.py:24",
+         "launches": launches["reference"]["reference_scan"],
+         "max_abs_err": s1_err, "ms": s1_ms, "plain_ms": s1_plain,
+         "bound_ms": s1_bound, "bound_by": s1_by, "library_ms": None},
     ]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

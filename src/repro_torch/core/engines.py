@@ -1,26 +1,34 @@
 """Engine registry (port of ``repro.core.engines``, DESIGN.md §2).
 
-The port registers the sublattice family: the fused-Philox engine
-``pallas_fused`` and the stream-fed pair ``sublattice`` (plain PyTorch)
-and ``pallas`` (CUDA kernel K3). Every other engine of the reference is
-named here with the ``ROADMAP.md`` item that ports it, and asking for one
-raises ``NotImplementedError``.
+The port registers the exact sequential engine ``reference`` (E1, kernel
+S1 on the card), the default ``batched`` engine (E2, scatter-min
+arbitration in plain PyTorch), and the sublattice family: the fused-Philox
+engine ``pallas_fused`` (kernels K1, K2) and the stream-fed pair
+``sublattice`` (plain PyTorch) and ``pallas`` (kernel K3). Only
+``reference`` and ``batched`` take reflecting boundaries. The multi-GPU
+engines are named here with the ``ROADMAP.md`` item that ports them, and
+asking for one raises ``NotImplementedError``.
 
 Engine contract in the port: ``build(params, dom, device) -> BuiltEngine``.
 The per-MCS key chain does not depend on the lattice, so it runs on the
 host, once per chunk (``schedule``), and the launches then take the two
 words and the shift it gives each MCS:
 
-* ``schedule(key, n) -> (key', seeds (n, 2), shifts (n, 2))`` on the host:
+* ``schedule(key, n) -> (key', words (n, 2), shifts (n, 2))`` on the host:
   the MCS loop's ``key, k1 = split(key)`` chain with the engine's round
-  inputs of every ``k1``. For ``pallas_fused`` the two words are the
-  Philox seed (``fused_round_inputs``); for ``sublattice`` and ``pallas``
-  they are the key data of the proposal key ``kp`` of ``kp, ks =
-  split(k1)``, and the shift is drawn from ``ks`` (``tiled_round_inputs``);
-* ``one_mcs(grid, seed, shift) -> grid``: one MCS;
+  inputs of every ``k1``. For ``reference`` and ``batched`` the words are
+  ``key_data(k1)`` and the shift is unused (zeros); for ``pallas_fused``
+  they are the Philox seed (``fused_round_inputs``); for ``sublattice``
+  and ``pallas`` they are the key data of the proposal key ``kp`` of ``kp,
+  ks = split(k1)``, and the shift is drawn from ``ks``
+  (``tiled_round_inputs``);
+* ``one_mcs(grid, words, shift) -> (grid, kept)``: one MCS, with ``kept``
+  the proposals it applied as a scalar tensor on the grid's device. The
+  tiled engines apply every proposal and return their attempts, as the
+  reference's ``_build_tiled`` does; ``batched`` drops contested ones;
 * ``multi_mcs(grid, seeds, shifts) -> (grid, counts)``: K MCS in one K2
   launch, ``seeds``/``shifts`` (K, 2) on the grid's device (``pallas_fused``
-  only; ``None`` elsewhere).
+  only, which drops nothing; ``None`` elsewhere).
 """
 from __future__ import annotations
 
@@ -31,11 +39,13 @@ from typing import (Callable, Dict, NamedTuple, Optional, Tuple,
 
 import torch
 
+from . import batched as batched_mod
+from . import reference as reference_mod
 from . import sublattice, threefry
 from .device import DeviceLike, resolve_device
 from .lattice import DIRS
 from .observables import observable_names
-from .rng import round_shift, tile_stream_batch
+from .rng import proposal_batch, round_shift, tile_stream_batch
 
 if TYPE_CHECKING:  # params validates through this module
     from .params import EscgParams
@@ -46,7 +56,7 @@ class BuiltEngine(NamedTuple):
     schedule: Callable[[torch.Tensor, int],
                        Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
     one_mcs: Callable[[torch.Tensor, Tuple[int, int], Tuple[int, int]],
-                      torch.Tensor]
+                      Tuple[torch.Tensor, torch.Tensor]]
     attempts_per_mcs: int
     device: torch.device
     multi_mcs: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
@@ -75,8 +85,6 @@ _REGISTRY: Dict[str, EngineSpec] = {}
 # engines of the reference that this port does not run yet, with the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "reference": "Queue 1, 'reference and batched engines'",
-    "batched": "Queue 1, 'reference and batched engines'",
     "sharded": "Queue 1, 'multi-GPU engines'",
     "sharded_pod": "Queue 1, 'multi-GPU engines'",
 }
@@ -154,6 +162,68 @@ def build(params, dom=None, device: Optional[DeviceLike] = None
 
 # --------------------------- registered engines --------------------------- #
 
+def _pick_sub_batches(n: int) -> int:
+    """Arbitration windows per MCS of ``batched``: the first of 8, 4, 2
+    that divides the N proposals, else 1."""
+    for d in (8, 4, 2):
+        if n % d == 0:
+            return d
+    return 1
+
+
+def _key_schedule(key: torch.Tensor, n_mcs: int):
+    """The schedule of ``reference`` and ``batched``: each MCS's words are
+    ``key_data(k1)``, and the shift is unused."""
+    return _round_schedule(
+        key, n_mcs, lambda k1: (threefry.key_data(k1), 0))
+
+
+@register("reference", EngineCaps())
+def _build_reference(p: "EscgParams", dom: torch.Tensor,
+                     device: torch.device) -> BuiltEngine:
+    """Sequential oracle (E1, Algorithm 3.2/3.3, the single-threaded
+    baseline): N proposals per MCS from ``proposal_batch(k1, N, N,
+    nbhd)``, applied strictly in order by kernel S1 on the card."""
+    t_eps, t_eps_mu = p.action_thresholds()
+    n = p.n_cells
+
+    def one_mcs(grid, words, shift):
+        k1 = torch.tensor(words, dtype=torch.int64)
+        batch = proposal_batch(k1, n, n, p.neighbourhood, device=grid.device)
+        return reference_mod.run_proposals(grid, batch, t_eps, t_eps_mu,
+                                           dom, p.flux)
+
+    return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
+                       device=device)
+
+
+@register("batched", EngineCaps())
+def _build_batched(p: "EscgParams", dom: torch.Tensor,
+                   device: torch.device) -> BuiltEngine:
+    """Scatter-min conflict arbitration over proposal sub-batches (E2,
+    Algorithm 3.5/3.6, the paper's CUDA design): each MCS splits ``k1``
+    into ``n_sub`` keys and runs one window of N / n_sub proposals per
+    key through ``batched.run_proposals``."""
+    t_eps, t_eps_mu = p.action_thresholds()
+    n = p.n_cells
+    n_sub = _pick_sub_batches(n)
+    b_sub = n // n_sub
+
+    def one_mcs(grid, words, shift):
+        keys = threefry.split(torch.tensor(words, dtype=torch.int64), n_sub)
+        kept = []
+        for k in keys:
+            batch = proposal_batch(k, b_sub, n, p.neighbourhood,
+                                   device=grid.device)
+            grid, k_sub = batched_mod.run_proposals(grid, batch, t_eps,
+                                                    t_eps_mu, dom, p.flux)
+            kept.append(k_sub)
+        return grid, torch.stack(kept).sum(dtype=torch.int32)
+
+    return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
+                       device=device)
+
+
 def _tiled_setup(p: "EscgParams"):
     """Tile bookkeeping of the sublattice-family engines."""
     th, tw = p.tile
@@ -212,6 +282,8 @@ def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
     t_eps, t_eps_mu = p.action_thresholds()
     th, tw, n_tiles, k_per_tile, _ = _tiled_setup(p)
     dirs = torch.as_tensor(DIRS, dtype=torch.int32).to(device)
+    attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
+                            device=device)
 
     def schedule(key, n_mcs):
         return multi_round_inputs(key, th, tw, n_mcs)
@@ -219,7 +291,7 @@ def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
     def one_mcs(grid, seed, shift):
         return kernel_ops.escg_round_fused(
             grid, seed, 0, shift, dom, dirs, p.tile, k_per_tile, t_eps,
-            t_eps_mu, p.neighbourhood, roll_back=False)
+            t_eps_mu, p.neighbourhood, roll_back=False), attempts
 
     def multi_mcs(grid, seeds, shifts):
         return kernel_ops.escg_rounds_fused(
@@ -243,6 +315,8 @@ def _build_tiled(p: "EscgParams", device: torch.device,
     way."""
     th, tw, n_tiles, k_per_tile, interior = _tiled_setup(p)
     tile_ids = torch.arange(n_tiles, dtype=torch.int64, device=device)
+    attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
+                            device=device)
 
     def schedule(key, n_mcs):
         return _round_schedule(key, n_mcs,
@@ -252,7 +326,7 @@ def _build_tiled(p: "EscgParams", device: torch.device,
         kp = torch.tensor(seed, dtype=torch.int64).to(grid.device)
         props = tile_stream_batch(kp, tile_ids, k_per_tile, interior,
                                   p.neighbourhood)
-        return run_round(grid, props, shift)
+        return run_round(grid, props, shift), attempts
 
     return BuiltEngine(schedule, one_mcs,
                        attempts_per_mcs=n_tiles * k_per_tile, device=device)
@@ -276,8 +350,9 @@ def _build_sublattice(p: "EscgParams", dom: torch.Tensor,
                                equiv_oracle="sublattice"))
 def _build_pallas(p: "EscgParams", dom: torch.Tensor,
                   device: torch.device) -> BuiltEngine:
-    """The sublattice round as the CUDA kernel K3, one thread per tile,
-    proposals read from the stream buffers."""
+    """The sublattice round as the CUDA kernel K3: one-warp blocks that
+    stage 32 tiles each in shared memory, with the roll fused into the
+    tile load and the proposals streamed in through shared memory."""
     from ..kernels import ops as kernel_ops  # kernels import core modules
     t_eps, t_eps_mu = p.action_thresholds()
     dirs = torch.as_tensor(DIRS, dtype=torch.int32).to(device)

@@ -1,10 +1,15 @@
-"""Lattice construction (port of ``repro.core.lattice``, paper §3.1.1).
+"""Lattice construction and neighbour indexing (port of
+``repro.core.lattice``, paper §3.1.1).
 
-The grid is an (H, W) integer tensor; 0 = empty, 1..S = species.
+The grid is an (H, W) integer tensor; 0 = empty, 1..S = species. Proposal
+streams address it by flat index, ``index = row * W + col``. Boundaries:
+``flux=True`` wraps (periodic, the paper's default); ``flux=False`` clamps
+an out-of-bounds neighbour to the nearest edge cell, as the reference's
+code does (its docstring calls this "reflect").
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,3 +45,33 @@ def counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     grid's device: kernel K4 on the card, its plain version on the CPU."""
     from ..kernels.density import density_counts  # kernels import core
     return density_counts(grid, species)
+
+
+def neighbor_rc(row: torch.Tensor, col: torch.Tensor,
+                direction: torch.Tensor, height: int, width: int,
+                flux: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Neighbour (row, col) for a direction id, under the boundary rule."""
+    dirs = torch.as_tensor(DIRS, device=row.device)
+    d = direction.long()
+    nr, nc = row + dirs[d, 0], col + dirs[d, 1]
+    if flux:
+        nr = torch.remainder(nr + height, height)
+        nc = torch.remainder(nc + width, width)
+    else:
+        nr = nr.clamp(0, height - 1)
+        nc = nc.clamp(0, width - 1)
+    return nr, nc
+
+
+def neighbor_index(cell: torch.Tensor, direction: torch.Tensor, height: int,
+                   width: int, flux: bool) -> torch.Tensor:
+    """Flat-index neighbour of each cell (int32 for int32 cells)."""
+    row = torch.div(cell, width, rounding_mode="floor")
+    col = torch.remainder(cell, width)
+    nr, nc = neighbor_rc(row, col, direction, height, width, flux)
+    return nr * width + nc
+
+
+def densities(grid: torch.Tensor, species: int) -> torch.Tensor:
+    """Share of each label 0..S, float32 on the grid's device."""
+    return counts(grid, species) / grid.numel()

@@ -2,20 +2,41 @@
 ``repro.core.rng``, paper §3.2.1)."""
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from . import threefry
+from .device import DeviceLike
 
 
 class ProposalBatch(NamedTuple):
-    """One round of elementary-step proposals, each field (T, K) for the
-    tiled engines."""
-    cell: torch.Tensor    # int32  interior cell index of each tile
+    """One round of elementary-step proposals: each field (B,) for the
+    ``reference`` and ``batched`` engines, with ``cell`` a flat lattice
+    index, and (T, K) for the tiled engines, with ``cell`` an index into
+    each tile's interior."""
+    cell: torch.Tensor    # int32  flat or interior cell index
     dirn: torch.Tensor    # int32  direction id in [0, nbhd)
     u_act: torch.Tensor   # float32 action draw in [0, 1)
     u_dom: torch.Tensor   # float32 dominance draw in [0, 1)
+
+
+def proposal_batch(key: torch.Tensor, n_proposals: int, n_cells: int,
+                   neighbourhood: int,
+                   device: Optional[DeviceLike] = None) -> ProposalBatch:
+    """One batch of proposals over the whole lattice (the paper's
+    refreshRandomNumbers): ``split(key, 4)``, then ``cell`` in [0, N),
+    ``dirn`` in [0, nbhd) and the two uniforms, each (n_proposals,), drawn
+    on ``device`` (default: the key's device). A host key keeps its own
+    splits off the card while the draws land on it."""
+    device = key.device if device is None else device
+    k1, k2, k3, k4 = threefry.split(key, 4)
+    n = (n_proposals,)
+    return ProposalBatch(
+        cell=threefry.randint(k1, n, 0, n_cells, device=device),
+        dirn=threefry.randint(k2, n, 0, neighbourhood, device=device),
+        u_act=threefry.uniform(k3, n, device=device),
+        u_dom=threefry.uniform(k4, n, device=device))
 
 
 def tile_stream_batch(key: torch.Tensor, tile_ids: torch.Tensor,

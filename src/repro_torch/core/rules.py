@@ -58,3 +58,28 @@ def apply_pair(s: torch.Tensor, n: torch.Tensor, u_act: torch.Tensor,
     new_s = torch.where(same, s, new_s)
     new_n = torch.where(same, n, new_n)
     return new_s.to(cell_dt), new_n.to(cell_dt)
+
+
+def apply_pair_reference(s: int, n: int, u_act: float, u_dom: float,
+                         t_eps: float, t_eps_mu: float,
+                         dom) -> Tuple[int, int]:
+    """Plain-Python transliteration of paper Algorithm 3.2 (test oracle),
+    in Python floats as the reference's own oracle."""
+    if s == n:
+        return s, n
+    if u_act < t_eps:                       # migration
+        return n, s
+    if u_act < t_eps_mu:                    # interaction
+        p1 = float(dom[s, n])
+        p2 = float(dom[n, s])
+        if u_dom < p1:
+            return s, 0                     # neighbour dies
+        if u_dom < p1 + p2:
+            return 0, n                     # self dies
+        return s, n
+    # reproduction
+    if n == 0:
+        return s, s
+    if s == 0:
+        return n, n
+    return s, n

@@ -67,18 +67,27 @@ class SimResult:
             kept_fraction=d["kept_fraction"])
 
 
+def _kept_total(parts):
+    """The applied proposals of a chunk's MCS, summed on the device."""
+    return torch.stack(parts).sum(dtype=torch.int64) if parts else 0
+
+
 def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
     """``chunk(grid, key, n_mcs) -> (grid, key, counts (n, S+1), kept,
     attempts)``, counts on the device.
 
     The key chain of the chunk is one host computation; with ``k_mcs > 1``
     its seeds and shifts go to the device in one copy, and the chunk runs
-    ``n_mcs // k_mcs`` megakernel launches plus one remainder launch."""
+    ``n_mcs // k_mcs`` megakernel launches plus one remainder launch. The
+    applied proposals ``kept`` are each MCS's count summed on the device,
+    so the host reads them once per chunk; the megakernel drops none, so
+    with ``k_mcs > 1`` they are the attempts."""
     s = params.species
     k_group = params.k_mcs
 
     def chunk(grid, key, n_mcs: int):
         key, seeds, shifts = built.schedule(key, n_mcs)
+        attempts = n_mcs * built.attempts_per_mcs
         parts = []
         if k_group > 1:
             sched = torch.stack([seeds, shifts]).to(built.device)
@@ -91,15 +100,18 @@ def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
                                              sched[1, start:stop])
                 parts.append(cnts)
                 start = stop
+            kept = attempts              # the megakernel drops nothing
         else:
+            kept_parts = []
             for seed, shift in zip(seeds.tolist(), shifts.tolist()):
-                grid = built.one_mcs(grid, seed, shift)
+                grid, kept_mcs = built.one_mcs(grid, seed, shift)
+                kept_parts.append(kept_mcs)
                 parts.append(metrics.counts(grid, s)[None])
+            kept = _kept_total(kept_parts)
         cnts = (torch.cat(parts) if parts else
                 torch.zeros((0, s + 1), dtype=torch.int32,
                             device=built.device))
-        attempts = n_mcs * built.attempts_per_mcs
-        return grid, key, cnts, attempts, attempts
+        return grid, key, cnts, kept, attempts
 
     return chunk
 
@@ -111,9 +123,10 @@ def build_obs_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
 
     The per-MCS counts never leave the device on their own: every row,
     the ``densities`` raw-count columns included, is pushed into the ring,
-    and the host takes the counts from the flushed rows. The key chain is
-    that of :func:`build_chunk_fn` (observing draws nothing), so
-    trajectories are bit-identical with observables on and off.
+    and the host takes the counts from the flushed rows. The key chain and
+    the device-side ``kept`` are those of :func:`build_chunk_fn`
+    (observing draws nothing), so trajectories are bit-identical with
+    observables on and off.
 
     With ``k_mcs > 1`` the lattices inside a megakernel launch never leave
     it: count-derived slices keep per-MCS cadence from the banked (K, S+1)
@@ -125,6 +138,7 @@ def build_obs_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
 
     def chunk(grid, key, ring, pos, n_mcs: int):
         key, seeds, shifts = built.schedule(key, n_mcs)
+        attempts = n_mcs * built.attempts_per_mcs
         if k_group > 1:
             sched = torch.stack([seeds, shifts]).to(built.device)
             q, r = divmod(n_mcs, k_group)
@@ -137,13 +151,16 @@ def build_obs_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
                 ring, pos = obs_mod.ring_push_many(
                     ring, pos, pipe.row_held(cnts, held))
                 start = stop
+            kept = attempts              # the megakernel drops nothing
         else:
+            kept_parts = []
             for seed, shift in zip(seeds.tolist(), shifts.tolist()):
-                grid = built.one_mcs(grid, seed, shift)
+                grid, kept_mcs = built.one_mcs(grid, seed, shift)
+                kept_parts.append(kept_mcs)
                 row = pipe.row(grid, metrics.counts(grid, s))
                 ring, pos = obs_mod.ring_push(ring, pos, row)
-        attempts = n_mcs * built.attempts_per_mcs
-        return grid, key, ring, pos, attempts, attempts
+            kept = _kept_total(kept_parts)
+        return grid, key, ring, pos, kept, attempts
 
     return chunk, pipe
 
@@ -221,7 +238,7 @@ def simulate(params, dom: Optional[np.ndarray] = None,
             grid, key, cnts, kept, att = chunk_fn(grid, key, n_mcs)
             cnts_h = cnts.cpu().numpy()          # one transfer per chunk
         hist.append(cnts_h)
-        kept_total += kept
+        kept_total += int(kept)          # the device is done: no wait
         att_total += att
         mcs_done += n_mcs
         alive = (cnts_h[:, 1:] > 0).sum(axis=1)

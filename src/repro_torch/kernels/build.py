@@ -26,11 +26,12 @@ import torch
 _HERE = Path(__file__).resolve().parent
 CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
-LIBRARIES = ("escg_update_fused", "escg_update", "density", "philox")
+LIBRARIES = ("escg_update_fused", "escg_update", "density", "philox",
+             "reference_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# the lattice types the update and histogram kernels are compiled for
+# the lattice types the update, scan and histogram kernels are compiled for
 CELL_DTYPES = (torch.int8, torch.int16, torch.int32)
 
 _loaded: Dict[str, ctypes.CDLL] = {}

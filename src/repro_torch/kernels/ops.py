@@ -1,8 +1,8 @@
 """Launch wrappers around the kernels (port of ``repro.kernels.ops``): the
 torus roll, which the reference keeps outside its Pallas calls, is fused
-into the tile loads of K1, K2 and K3.
-``launches``/``reset_launches`` read and clear every kernel's launch
-count."""
+into the tile loads of K1, K2 and K3, and the reference engine's
+sequential scan is S1. ``launches``/``reset_launches`` read and clear every
+kernel's launch count."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -14,13 +14,15 @@ from . import density as density_kernel
 from . import escg_update as escg_kernel
 from . import escg_update_fused as fused
 from . import philox as philox_kernel
+from . import reference_scan as scan_kernel
 from .philox import philox_bits, philox_uniform
+from .reference_scan import reference_scan
 
 __all__ = ["escg_round", "escg_round_fused", "escg_rounds_fused",
-           "density_counts", "philox_bits", "philox_uniform", "launches",
-           "reset_launches"]
+           "density_counts", "philox_bits", "philox_uniform",
+           "reference_scan", "launches", "reset_launches"]
 
-_COUNTED = (fused, escg_kernel, density_kernel, philox_kernel)
+_COUNTED = (fused, escg_kernel, density_kernel, philox_kernel, scan_kernel)
 
 
 def launches() -> Dict[str, int]:

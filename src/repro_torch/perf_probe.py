@@ -9,16 +9,21 @@ main path of ``chip_smoke.py``) and reports:
   one chunk, divided by its MCS);
 * for the stream-fed ``pallas`` engine, the device time of one MCS's
   proposal draws, ``rng.tile_stream_batch``, by CUDA events;
+* for the default ``batched`` engine, the device time of one MCS's
+  proposal draws (``rng.proposal_batch`` for each of its sub-batches) and
+  of its arbitration windows (``batched.run_proposals``), by CUDA events;
 * for each window, the wall time per MCS of a ``simulate`` window, one
-  chunk of 100 MCS after a warm-up run, and from a ``torch.profiler``
-  trace of the same window the device time per MCS by kernel and the
-  device's idle share, 1 - busy / wall.
+  chunk of 100 MCS (10 on ``batched``) after a warm-up run, and from a
+  ``torch.profiler`` trace of the same window the device time per MCS by
+  kernel, K4's among them, and the device's idle share, 1 - busy / wall.
 
 ``pallas_fused`` runs windows at ``k_mcs`` 1 and 10 with observables off;
-``pallas`` runs one window with park3's declared observables
-(``densities``, ``interface_length``), the path users call. (The plain
-``sublattice`` engine launches some 7,700 small kernels per MCS, more
-than a profiler window holds in reasonable time, and is not offered.) It
+``pallas`` and ``batched`` run one window with park3's declared
+observables (``densities``, ``interface_length``), the path users call.
+``batched`` launches some 9,000 small kernels per MCS, so its window is
+10 MCS. (The plain ``sublattice`` engine launches some 7,700 per MCS and
+is not offered; nor is ``reference``, whose one MCS at 3200 x 3200 is
+10.24 M sequential steps: ``chip_smoke.py`` times it with events.) It
 prints one JSON object, also written to ``--out``. It needs a card.
 """
 from __future__ import annotations
@@ -30,12 +35,14 @@ import time
 
 import torch
 
-from .core import engines, rng, threefry
+from .core import batched, engines, lattice, rng, threefry
 from .core.scenarios import (EngineConfig, RunConfig, compose,
                              make_scenario)
 from .core.simulation import simulate
 
-SIDE, TILE, WINDOW = 3200, (8, 32), 100
+SIDE, TILE = 3200, (8, 32)
+# MCS in a profiled window, by engine
+WINDOW = {"pallas_fused": 100, "pallas": 100, "batched": 10}
 
 
 def _device_us(evt) -> float:
@@ -46,15 +53,16 @@ def _device_us(evt) -> float:
 
 
 def _window(engine: str, k_mcs: int, observables) -> dict:
+    window = WINDOW[engine]
     args = dict(engine=EngineConfig(engine=engine, tile=TILE, k_mcs=k_mcs),
-                run=RunConfig(length=SIDE, height=SIDE, mcs=WINDOW,
-                              chunk_mcs=WINDOW, observables=observables))
+                run=RunConfig(length=SIDE, height=SIDE, mcs=window,
+                              chunk_mcs=window, observables=observables))
     simulate(make_scenario("park3"), **args)            # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     simulate(make_scenario("park3"), **args)
     torch.cuda.synchronize()
-    untraced = (time.perf_counter() - t0) / WINDOW * 1e3
+    untraced = (time.perf_counter() - t0) / window * 1e3
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -67,17 +75,33 @@ def _window(engine: str, k_mcs: int, observables) -> dict:
         if evt.device_type == torch.autograd.DeviceType.CUDA:
             name = evt.key[:100]
             by_kernel[name] = (by_kernel.get(name, 0.0)
-                               + _device_us(evt) / WINDOW / 1e3)
+                               + _device_us(evt) / window / 1e3)
     busy = sum(by_kernel.values())
-    traced_ms = traced / WINDOW * 1e3
-    return {"engine": engine, "k_mcs": k_mcs,
+    traced_ms = traced / window * 1e3
+    return {"engine": engine, "k_mcs": k_mcs, "mcs": window,
             "observables": "declared" if observables is None else "off",
             "wall_ms_per_mcs": untraced,
             "traced_wall_ms_per_mcs": traced_ms,
             "device_busy_ms_per_mcs": busy,
             "idle_share": 1.0 - busy / traced_ms,
+            "k4_ms_per_mcs": sum(ms for name, ms in by_kernel.items()
+                                 if "density_kernel" in name),
             "device_ms_per_mcs_by_kernel": dict(
                 sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+
+
+def _event_ms(fn, n: int) -> float:
+    """Device ms per call of ``fn`` by CUDA events over ``n`` calls after
+    a warm-up call."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / n
 
 
 def _stream_ms() -> float:
@@ -89,24 +113,43 @@ def _stream_ms() -> float:
     th, tw, n_tiles, k, interior = engines._tiled_setup(p)
     key = threefry.PRNGKey(0).cuda()
     ids = torch.arange(n_tiles, device="cuda")
+    return _event_ms(lambda: rng.tile_stream_batch(key, ids, k, interior,
+                                                   p.neighbourhood), 10)
 
-    def draw():
-        return rng.tile_stream_batch(key, ids, k, interior, p.neighbourhood)
-    draw()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(10):
-        draw()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / 10
+
+def _batched_parts_ms() -> dict:
+    """Device ms of one MCS's parts on ``batched`` at 3200 x 3200, by CUDA
+    events over 5 MCS after a warm-up: the proposal draws of its
+    sub-batches, and their arbitration windows."""
+    park3 = make_scenario("park3")
+    p = compose(park3, EngineConfig(engine="batched"),
+                RunConfig(length=SIDE, height=SIDE))
+    n = p.n_cells
+    n_sub = engines._pick_sub_batches(n)
+    keys = threefry.split(threefry.PRNGKey(0), n_sub)
+    t_eps, t_eps_mu = p.action_thresholds()
+    dom = torch.as_tensor(park3.dominance()).cuda()
+    grid = lattice.init_grid(threefry.PRNGKey(1), SIDE, SIDE, p.species,
+                             device="cuda")
+
+    def draws():
+        return [rng.proposal_batch(k, n // n_sub, n, p.neighbourhood,
+                                   device="cuda") for k in keys]
+    windows = draws()
+
+    def arbitrate():
+        g = grid
+        for w in windows:
+            g, _ = batched.run_proposals(g, w, t_eps, t_eps_mu, dom, p.flux)
+    return {"sub_batches": n_sub,
+            "proposal_batch_ms_per_mcs": _event_ms(draws, 5),
+            "arbitration_ms_per_mcs": _event_ms(arbitrate, 5)}
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="pallas_fused",
-                    choices=("pallas_fused", "pallas"))
+                    choices=tuple(WINDOW))
     ap.add_argument("--out", default=None)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
@@ -120,16 +163,19 @@ def main(argv=None) -> int:
                 EngineConfig(engine=args.engine, tile=TILE),
                 RunConfig(length=SIDE, height=SIDE)), device="cpu")
     t0 = time.perf_counter()
-    built.schedule(threefry.PRNGKey(0), WINDOW)
-    chain_us = (time.perf_counter() - t0) / WINDOW * 1e6
+    built.schedule(threefry.PRNGKey(0), 100)
+    chain_us = (time.perf_counter() - t0) / 100 * 1e6
     report = {"card": card, "engine": args.engine,
               "lattice": f"{SIDE}x{SIDE}", "tile": TILE,
               "host_key_chain_us_per_mcs": chain_us}
     if args.engine == "pallas_fused":
         report["windows"] = [_window(args.engine, 1, ()),
                              _window(args.engine, 10, ())]
-    else:
+    elif args.engine == "pallas":
         report["tile_stream_batch_ms_per_mcs"] = _stream_ms()
+        report["windows"] = [_window(args.engine, 1, None)]
+    else:
+        report.update(_batched_parts_ms())
         report["windows"] = [_window(args.engine, 1, None)]
     text = json.dumps(report)
     print(text)

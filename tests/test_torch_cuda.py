@@ -7,8 +7,9 @@ JAX, so they run on the GPU machine as they are:
 
 The kernels are held to their plain PyTorch versions (which
 ``test_torch_kernels.py`` holds to the JAX package on the CPU), and
-``simulate`` on the card to the fused golden, to itself across ``k_mcs``
-and observables, and the ``pallas`` engine to ``sublattice``.
+``simulate`` on the card to the fused and reference goldens, to itself
+across ``k_mcs`` and observables, the ``pallas`` engine to
+``sublattice``, and ``batched`` to the CPU and to S1 dropping conflicts.
 """
 import hashlib
 import json
@@ -18,16 +19,19 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import dominance, lattice, rng, threefry
+from repro_torch.core import batched, dominance, lattice, rng, threefry
 from repro_torch.core.scenarios import EngineConfig, RunConfig, make_scenario
 from repro_torch.core.simulation import simulate
 from repro_torch.kernels import density, escg_update, ops, philox
+from repro_torch.kernels import reference_scan
 from repro_torch.kernels import escg_update_fused as fused
 
 pytestmark = pytest.mark.cuda
 
 GOLDEN = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden",
                       "fused_trajectory.json")
+REF_GOLDEN = os.path.join(os.path.dirname(GOLDEN),
+                          "reference_trajectory.json")
 
 
 @pytest.fixture
@@ -274,3 +278,77 @@ def test_fused_observables_on_equal_off(cuda, k_mcs):
     off = run(())
     np.testing.assert_array_equal(on.grid, off.grid)
     np.testing.assert_array_equal(on.densities, off.densities)
+
+
+@pytest.mark.parametrize("n_props", [4096, 4097])
+@pytest.mark.parametrize("drop", [False, True])
+@pytest.mark.parametrize("flux", [True, False])
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 4), (torch.int32, 8),
+                                        (torch.int8, 4), (torch.int16, 8)])
+def test_reference_scan_equals_plain(cuda, dtype, nbhd, flux, drop,
+                                     n_props):
+    """S1 against its plain version (the host loop) at 64 x 64: lattice
+    and applied count."""
+    grid = lattice.init_grid(threefry.PRNGKey(7), 64, 64, 5, 0.1,
+                             dtype=dtype, device=cuda)
+    dom, dirs = _tables(5, cuda)
+    props = rng.proposal_batch(threefry.PRNGKey(n_props + nbhd), n_props,
+                               64 * 64, nbhd, device=cuda)
+    before = reference_scan.LAUNCHES["reference_scan"]
+    got_g, got_k = reference_scan.reference_scan(
+        grid, *props, dom, dirs, 0.25, 0.6, flux, drop)
+    want_g, want_k = reference_scan.reference_scan_plain(
+        grid, *props, dom, 0.25, 0.6, flux, drop)
+    torch.cuda.synchronize()
+    assert reference_scan.LAUNCHES["reference_scan"] == before + 1
+    assert got_g.is_cuda and got_g.dtype == dtype
+    assert torch.equal(got_g, want_g)
+    assert int(got_k) == int(want_k)
+    assert (int(got_k) < n_props) == drop
+
+
+def test_reference_scan_dropping_equals_batched_window(cuda):
+    """One ``batched`` window on the card equals S1 with
+    ``drop_conflicts``."""
+    grid = lattice.init_grid(threefry.PRNGKey(2), 256, 256, 3, 0.1,
+                             device=cuda)
+    dom, dirs = _tables(3, cuda)
+    props = rng.proposal_batch(threefry.PRNGKey(3), 256 * 256 // 8,
+                               256 * 256, 4, device=cuda)
+    g_bat, k_bat = batched.run_proposals(grid, props, 0.25, 0.6, dom, True)
+    g_seq, k_seq = reference_scan.reference_scan(grid, *props, dom, dirs,
+                                                 0.25, 0.6, True, True)
+    assert torch.equal(g_bat, g_seq)
+    assert int(k_bat) == int(k_seq) < 256 * 256 // 8
+
+
+def test_reference_golden_and_batched_on_the_card(cuda):
+    """The reference golden through ``simulate`` on the card (S1 once per
+    MCS), and ``batched`` on the card equal to the CPU."""
+    with open(REF_GOLDEN) as f:
+        want = json.load(f)
+    cfg = want["params"]
+    hashes = []
+    ops.reset_launches()
+    res = simulate(make_scenario("nspecies3", mobility=cfg["mobility"],
+                                 empty=cfg["empty"]), dominance.RPS(),
+                   engine=EngineConfig(engine="reference"),
+                   run=RunConfig(length=cfg["length"], height=cfg["height"],
+                                 mcs=cfg["mcs"], chunk_mcs=cfg["chunk_mcs"],
+                                 seed=cfg["seed"], observables=()),
+                   stop_on_stasis=False,
+                   hooks=[lambda m, g, c: hashes.append(hashlib.sha256(
+                       g.cpu().numpy().astype("<i4").tobytes()).hexdigest())])
+    assert ops.launches()["reference_scan"] == cfg["mcs"]
+    assert hashes == want["grid_hashes"]
+    np.testing.assert_array_equal(res.densities, np.asarray(want["densities"]))
+    assert res.kept_fraction == 1.0
+
+    def run(device):
+        return simulate(make_scenario("park3", boundary="reflect"),
+                        run=RunConfig(length=96, height=64, mcs=3,
+                                      chunk_mcs=2), device=device)
+    on_card, on_host = run(None), run("cpu")
+    np.testing.assert_array_equal(on_card.grid, on_host.grid)
+    assert on_card.kept_fraction == on_host.kept_fraction < 1.0

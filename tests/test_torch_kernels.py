@@ -28,7 +28,7 @@ from repro.kernels import ref
 from repro_torch.core import dominance, lattice, rng, rules, threefry
 from repro_torch.kernels import build, density, escg_update
 from repro_torch.kernels import escg_update_fused as fused
-from repro_torch.kernels import ops, philox
+from repro_torch.kernels import ops, philox, reference_scan
 
 KNOWN_ANSWER = {
     # Random123 published KATs for philox4x32-10
@@ -310,7 +310,8 @@ def _c_declarations(path):
     return decls
 
 
-@pytest.mark.parametrize("module", [fused, escg_update, density, philox],
+@pytest.mark.parametrize("module", [fused, escg_update, density, philox,
+                                    reference_scan],
                          ids=lambda m: m.__name__.rsplit(".", 1)[1])
 def test_ctypes_signatures_match_c_declarations(module, monkeypatch):
     """Every entry point of ``csrc/<library>.cu`` is bound with as many
