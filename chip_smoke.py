@@ -27,7 +27,15 @@ each with the launch counts set to 0 just before it and read just after:
 * park3 at 3200 x 3200 on the default ``batched`` engine, observables off
   and declared (K4 only), held to the CPU at 800 x 800;
 * park3 at 1600 x 1600 on the sequential ``reference`` engine for one MCS
-  (S1, K4).
+  (S1, K4);
+* park3 at 3200 x 3200 on the domain-decomposed ``sharded`` engine over a
+  (2, 2) mesh of four ``cuda:0`` entries: ``local_kernel='fused'`` (K1
+  per block and K4 per block, no ``torch.roll``) held to ``pallas_fused``,
+  again on a (1, 1) mesh with ``k_mcs`` 10 (K2); ``'pallas'`` with park3's
+  declared observables (K3 and K4 per block) held to ``pallas``; and
+  ``'jnp'`` at 256 x 256 held to ``'pallas'``. ``density_counts_sharded``
+  (K4 per block plus a sum over the mesh) is held to the plain count of
+  the whole lattice.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -96,6 +104,11 @@ OPS_PER_SCAN_STEP = 40
 # the batched path held to the CPU at this side for this many MCS
 BATCHED_CPU_SIDE, BATCHED_CPU_MCS = 800, 3
 ALL_OBS = ("densities", "interface_length", "cluster_size", "snapshot")
+# the sharded engine's runs: a (2, 2) mesh of one card's entries, 50 MCS
+# in chunks of 25 at 3200 x 3200 (each beside its single-device twin), and
+# the plain sweep at 256 x 256 for 3 MCS
+SH_GRID, SH_MCS, SH_CHUNK = (2, 2), 50, 25
+JNP_SIDE, JNP_MCS = 256, 3
 
 
 def check(cond, what):
@@ -224,7 +237,7 @@ def main():
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
     from repro_torch.core import batched, dominance, engines, lattice, rng
-    from repro_torch.core import threefry
+    from repro_torch.core import sharded, threefry
     from repro_torch.core import observables as obs
     from repro_torch.core.scenarios import (EngineConfig, RunConfig,
                                             compose, make_scenario)
@@ -232,6 +245,7 @@ def main():
     from repro_torch.kernels import build, density, escg_update, ops, philox
     from repro_torch.kernels import reference_scan
     from repro_torch.kernels import escg_update_fused as fused
+    from repro_torch.parallel import sharding
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "the port imported jax")
@@ -922,7 +936,147 @@ def main():
           f"lattice in L1; library call: none computes a sequential scan; "
           f"{card}")
 
-    # ---- 19. the kernel table ----
+    # ---- 19. [K4s] the histogram of a lattice decomposed over a mesh ----
+    mesh4 = ["cuda:0"] * (SH_GRID[0] * SH_GRID[1])
+    lat_main = sharded.place(g_main, sharding.lattice_mesh(
+        SH_GRID, SIDE, SIDE, th, tw, devices=mesh4))
+    ops.reset_launches()
+    k4s = density.density_counts_sharded(lat_main.flat, 3)
+    k4s_launches = ops.launches()["density_counts"]
+    whole = density.density_counts(g_main, 3)
+    torch.cuda.synchronize()
+    k4s_err = max(max_err(torch, k4s,
+                          density.density_counts_plain(g_main, 3)),
+                  max_err(torch, k4s, whole))
+    check(k4s_launches == len(mesh4),
+          f"density_counts_sharded made {k4s_launches} K4 launches")
+    check(k4s_err == 0.0, f"K4s disagrees with the plain count of the "
+          f"whole lattice ({k4s_err})")
+    k4_err = max(k4_err, k4s_err)
+    k4s_ms = event_ms(torch, lambda: density.density_counts_sharded(
+        lat_main.flat, 3), 100)
+    k4s_plain = event_ms(torch, lambda: density.density_counts_plain(
+        lat_main.gather(), 3), 10)
+    k4s_lib = event_ms(torch, lambda: torch.stack(
+        [torch.bincount(b.reshape(-1), minlength=4)
+         for b in lat_main.flat]).sum(dim=0), 100)
+    print(f"[K4s] density_counts_sharded of park3's {SIDE}x{SIDE} lattice "
+          f"on a {SH_GRID} mesh of cuda:0: {k4s_launches} K4 launches, "
+          f"max_abs_err {k4s_err} against the plain count and K4 of the "
+          f"whole lattice; {k4s_ms:.4f} ms (K4 on the whole lattice "
+          f"{k4_ms:.4f} ms), plain of the gathered lattice {k4s_plain:.4f} "
+          f"ms, bound {k4_bound * 1e3:.1f} us by {k4_by}, library call "
+          f"(torch.bincount per block plus the sum) {k4s_lib:.4f} ms; "
+          f"{card}")
+
+    # ---- 20. [sharded] the domain-decomposed engine on one card ----
+    def timed(engine, device=None, side=SIDE, mcs=SH_MCS, chunk=SH_CHUNK,
+              observables=(), key=None, **kw):
+        """One ``simulate`` of park3 with the launch and roll counts and
+        ms/MCS over its second chunk."""
+        stamps = []
+        ops.reset_launches()
+        with counted_rolls(torch, rolls, key or engine):
+            r = simulate(park3,
+                         engine=EngineConfig(engine=engine, tile=TILE, **kw),
+                         run=RunConfig(length=side, height=side, mcs=mcs,
+                                       chunk_mcs=chunk,
+                                       observables=observables),
+                         device=device,
+                         hooks=[lambda m, g, c: stamps.append(
+                             time.perf_counter())])
+        launches[key or engine] = ops.launches()
+        ms = ((stamps[1] - stamps[0]) / chunk * 1e3 if len(stamps) > 1
+              else None)
+        return r, ms
+
+    def same(a, b, names=("densities",)):
+        return (np.array_equal(a.grid, b.grid)
+                and all(np.array_equal(a.observables[n], b.observables[n])
+                        for n in names))
+
+    n_blocks = len(mesh4)
+    twin, twin_ms = timed("pallas_fused", key="twin_fused")
+    sh_f, sh_f_ms = timed("sharded", mesh4, key="sharded_fused",
+                          shard_grid=SH_GRID, local_kernel="fused")
+    counted = launches["sharded_fused"]
+    check(counted["escg_tile_round_fused"] == n_blocks * SH_MCS
+          and counted["density_counts"] == n_blocks * (SH_MCS + 1)
+          and counted["escg_tile_rounds_fused"] == 0,
+          f"sharded/fused did not run K1 and K4 per block: {counted}")
+    check(rolls["sharded_fused"] == 0, f"sharded/fused rolled the lattice "
+          f"outside K1 ({rolls['sharded_fused']} torch.roll calls)")
+    check(same(sh_f, twin) and sh_f.grid.shape == (SIDE, SIDE)
+          and grid_hash(torch.from_numpy(sh_f.grid))
+          == grid_hash(torch.from_numpy(twin.grid)),
+          "sharded/fused differs from pallas_fused")
+    print(f"[sharded] fused park3 {SIDE}x{SIDE} on a {SH_GRID} mesh of "
+          f"cuda:0, {SH_MCS} MCS: equals pallas_fused (final grid hash, "
+          f"all {SH_MCS + 1} count rows); launches {counted}; torch.roll "
+          f"calls {rolls['sharded_fused']}; second chunk {sh_f_ms:.4f} "
+          f"ms/MCS against pallas_fused's {twin_ms:.4f}; {card}")
+    sh_k, sh_k_ms = timed("sharded", ["cuda:0"], key="sharded_fused_k10",
+                          shard_grid=(1, 1), local_kernel="fused",
+                          k_mcs=K_MCS)
+    counted = launches["sharded_fused_k10"]
+    # each chunk runs whole groups of K_MCS and one remainder launch
+    k2_launches = SH_MCS // SH_CHUNK * -(-SH_CHUNK // K_MCS)
+    check(counted["escg_tile_rounds_fused"] == k2_launches
+          and counted["escg_tile_round_fused"] == 0
+          and counted["density_counts"] == 1,
+          f"sharded/fused (1, 1) k_mcs={K_MCS} did not run K2: {counted}")
+    check(same(sh_k, twin), f"sharded/fused (1, 1) k_mcs={K_MCS} differs "
+          "from pallas_fused")
+    print(f"[sharded] fused park3 {SIDE}x{SIDE} on a (1, 1) mesh, k_mcs="
+          f"{K_MCS}: equals pallas_fused at k_mcs=1; launches {counted}; "
+          f"second chunk {sh_k_ms:.4f} ms/MCS; {card}")
+    # the parts of a (2, 2) fused MCS: K1 on one block, and the halo
+    # copies of a whole round
+    blk = lat_main.blocks[1][1]
+    k1_block_ms = event_ms(torch, lambda: fused.escg_tile_round_fused(
+        blk, (1, 2), 0, dom, dirs, TILE, k, te, tem, 4,
+        (blk.shape[0] // th, blk.shape[1] // tw), SIDE // tw), 50)
+    halo_ms = event_ms(torch, lambda: sharded.shard_shift2d(
+        lat_main, (th - 1, tw - 1), TILE), 50)
+    print(f"[sharded] K1 on one {blk.shape[0]}x{blk.shape[1]} block with "
+          f"its tile_offset: {k1_block_ms:.4f} ms per launch (x{n_blocks} "
+          f"= {n_blocks * k1_block_ms:.4f}; K1 on the whole lattice "
+          f"{k1_ms:.4f}); the halo copies of a {(th - 1, tw - 1)} shift on "
+          f"the {SH_GRID} mesh {halo_ms:.4f} ms; {card}")
+
+    twin_p, twin_p_ms = timed("pallas", observables=None, key="twin_pallas")
+    sh_p, sh_p_ms = timed("sharded", mesh4, observables=None,
+                          key="sharded_pallas", shard_grid=SH_GRID,
+                          local_kernel="pallas")
+    counted = launches["sharded_pallas"]
+    check(counted["escg_tile_round"] == n_blocks * SH_MCS
+          and counted["density_counts"] == n_blocks * (SH_MCS + 1),
+          f"sharded/pallas did not run K3 and K4 per block: {counted}")
+    check(rolls["sharded_pallas"] == 0, f"sharded/pallas rolled the "
+          f"lattice outside K3 ({rolls['sharded_pallas']} torch.roll calls)")
+    check(set(sh_p.observables) == {"densities", "interface_length"}
+          and same(sh_p, twin_p, ("densities", "interface_length")),
+          "sharded/pallas differs from pallas")
+    print(f"[sharded] pallas park3 {SIDE}x{SIDE} on a {SH_GRID} mesh of "
+          f"cuda:0 with park3's observables, {SH_MCS} MCS: equals pallas "
+          f"(final grid, densities and interface_length rows); launches "
+          f"{counted}; torch.roll calls {rolls['sharded_pallas']}; second "
+          f"chunk {sh_p_ms:.4f} ms/MCS against pallas's {twin_p_ms:.4f}; "
+          f"{card}")
+
+    small = {lk: timed("sharded", mesh4, side=JNP_SIDE, mcs=JNP_MCS,
+                       chunk=JNP_MCS, observables=None,
+                       key=f"sharded_{lk}_small", shard_grid=SH_GRID,
+                       local_kernel=lk)[0] for lk in ("jnp", "pallas")}
+    check(same(small["jnp"], small["pallas"],
+               ("densities", "interface_length")),
+          "sharded/jnp differs from sharded/pallas")
+    print(f"[sharded] jnp park3 {JNP_SIDE}x{JNP_SIDE} on a {SH_GRID} mesh, "
+          f"{JNP_MCS} MCS: equals sharded/pallas (final grid, densities "
+          f"and interface_length rows); launches "
+          f"{launches['sharded_jnp_small']}")
+
+    # ---- 21. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,
@@ -943,7 +1097,8 @@ def main():
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "density_counts", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/density.cu",
-         "replaces": "src/repro/kernels/density.py:41",
+         "replaces": "src/repro/kernels/density.py:41; "
+                     "src/repro/kernels/density.py:60",
          "launches": launches["pallas"]["density_counts"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib},

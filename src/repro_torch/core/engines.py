@@ -4,12 +4,15 @@ The port registers the exact sequential engine ``reference`` (E1, kernel
 S1 on the card), the default ``batched`` engine (E2, scatter-min
 arbitration in plain PyTorch), and the sublattice family: the fused-Philox
 engine ``pallas_fused`` (kernels K1, K2) and the stream-fed pair
-``sublattice`` (plain PyTorch) and ``pallas`` (kernel K3). Only
-``reference`` and ``batched`` take reflecting boundaries. The multi-GPU
-engines are named here with the ``ROADMAP.md`` item that ports them, and
-asking for one raises ``NotImplementedError``.
+``sublattice`` (plain PyTorch) and ``pallas`` (kernel K3), and the
+domain-decomposed ``sharded`` engine (``core/sharded.py``), which runs one
+of those rounds on every block of a device mesh. Only ``reference`` and
+``batched`` take reflecting boundaries. ``sharded_pod`` is named here with
+the ``ROADMAP.md`` item that ports it, and asking for it raises
+``NotImplementedError``.
 
-Engine contract in the port: ``build(params, dom, device) -> BuiltEngine``.
+Engine contract in the port: ``build(params, dom, device) -> BuiltEngine``
+(``device`` is the tuple of mesh devices for a ``multi_device`` engine).
 The per-MCS key chain does not depend on the lattice, so it runs on the
 host, once per chunk (``schedule``), and the launches then take the two
 words and the shift it gives each MCS:
@@ -28,13 +31,20 @@ words and the shift it gives each MCS:
   reference's ``_build_tiled`` does; ``batched`` drops contested ones;
 * ``multi_mcs(grid, seeds, shifts) -> (grid, counts)``: K MCS in one K2
   launch, ``seeds``/``shifts`` (K, 2) on the grid's device (``pallas_fused``
-  only, which drops nothing; ``None`` elsewhere).
+  and ``sharded`` with ``local_kernel='fused'``, which drop nothing;
+  ``None`` elsewhere);
+* ``place(grid) -> lattice``, ``gather(lattice) -> grid`` and
+  ``counts(lattice, species) -> (S+1,) int32``: how ``simulate`` puts the
+  (H, W) lattice on the engine's devices, takes it back and counts it. The
+  single-device engines keep the tensor as it is and count it with K4;
+  ``sharded`` splits it into blocks over its mesh and counts them with
+  ``density_counts_sharded``.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
-from typing import (Callable, Dict, NamedTuple, Optional, Tuple,
+from typing import (Any, Callable, Dict, NamedTuple, Optional, Tuple,
                     TYPE_CHECKING)
 
 import torch
@@ -42,8 +52,9 @@ import torch
 from . import batched as batched_mod
 from . import reference as reference_mod
 from . import sublattice, threefry
-from .device import DeviceLike, resolve_device
+from .device import Devices, resolve_device, resolve_devices
 from .lattice import DIRS
+from .lattice import counts as _lattice_counts
 from .observables import observable_names
 from .rng import proposal_batch, round_shift, tile_stream_batch
 
@@ -51,16 +62,23 @@ if TYPE_CHECKING:  # params validates through this module
     from .params import EscgParams
 
 
+def _same(grid):
+    return grid
+
+
 class BuiltEngine(NamedTuple):
     """A ready-to-run engine for one (params, dominance, device)."""
     schedule: Callable[[torch.Tensor, int],
                        Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
-    one_mcs: Callable[[torch.Tensor, Tuple[int, int], Tuple[int, int]],
-                      Tuple[torch.Tensor, torch.Tensor]]
+    one_mcs: Callable[[Any, Tuple[int, int], Tuple[int, int]],
+                      Tuple[Any, torch.Tensor]]
     attempts_per_mcs: int
-    device: torch.device
-    multi_mcs: Optional[Callable[[torch.Tensor, torch.Tensor, torch.Tensor],
-                                 Tuple[torch.Tensor, torch.Tensor]]] = None
+    device: torch.device       # where the lattice is built, counts land
+    multi_mcs: Optional[Callable[[Any, torch.Tensor, torch.Tensor],
+                                 Tuple[Any, torch.Tensor]]] = None
+    place: Callable[[torch.Tensor], Any] = _same
+    gather: Callable[[Any], torch.Tensor] = _same
+    counts: Callable[[Any, int], torch.Tensor] = _lattice_counts
 
 
 @dataclass(frozen=True)
@@ -68,9 +86,28 @@ class EngineCaps:
     """Static capability metadata consumed by params validation."""
     flux_only: bool = False    # requires periodic (torus) boundaries
     tiled: bool = False        # consumes params.tile; tile must divide grid
+    multi_device: bool = False  # domain-decomposed over a device mesh
+    mesh_axes: Tuple[str, ...] = ()  # the mesh axes the engine owns;
+                               # ('rows', 'cols') = grid decomposition
+    local_kernels: Tuple[str, ...] = ()  # the values of
+                               # params.local_kernel the engine accepts;
+                               # empty = the knob is ignored
     multi_mcs: bool = False    # supports params.k_mcs > 1 (the megakernel)
     equiv_oracle: Optional[str] = None  # engine this one is bit-identical
                                # to (same key -> same trajectory)
+    equiv_oracles: Tuple[Tuple[str, str], ...] = ()
+                               # (local_kernel, oracle) overrides: a local
+                               # kernel with its own PRNG scheme belongs to
+                               # another family ('fused' -> 'pallas_fused')
+
+    def oracle_for(self, local_kernel: str = "jnp") -> Optional[str]:
+        """The engine this one is bit-identical to when it runs
+        ``local_kernel``: ``equiv_oracles`` first, then
+        ``equiv_oracle``."""
+        for lk, oracle in self.equiv_oracles:
+            if lk == local_kernel:
+                return oracle
+        return self.equiv_oracle
 
 
 @dataclass(frozen=True)
@@ -85,8 +122,7 @@ _REGISTRY: Dict[str, EngineSpec] = {}
 # engines of the reference that this port does not run yet, with the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "sharded": "Queue 1, 'multi-GPU engines'",
-    "sharded_pod": "Queue 1, 'multi-GPU engines'",
+    "sharded_pod": "Queue 1, item 2 (trials.run_trials)",
 }
 
 
@@ -126,38 +162,62 @@ def validate_params(p: "EscgParams") -> None:
         if p.height % th or p.length % tw:
             raise ValueError(f"tile {p.tile} must divide lattice "
                              f"{p.height}x{p.length}")
+    if spec.caps.multi_device and p.shard_grid is not None:
+        dr, dc = p.shard_grid
+        if dr < 1 or dc < 1:
+            raise ValueError("shard_grid dims must be >= 1")
     if p.local_kernel not in ("jnp", "pallas", "fused"):
         raise ValueError("local_kernel must be 'jnp', 'pallas' or 'fused'")
+    if spec.caps.local_kernels and \
+            p.local_kernel not in spec.caps.local_kernels:
+        raise ValueError(
+            f"engine {p.engine!r} supports local_kernel in "
+            f"{spec.caps.local_kernels}, got {p.local_kernel!r}")
     if p.k_mcs < 1:
         raise ValueError(f"k_mcs must be >= 1, got {p.k_mcs}")
     if p.k_mcs > 1 and not spec.caps.multi_mcs:
         raise ValueError(f"engine {p.engine!r} does not support k_mcs > 1")
+    if p.k_mcs > 1 and spec.caps.local_kernels and p.local_kernel != "fused":
+        raise ValueError(
+            f"k_mcs > 1 requires local_kernel='fused' on engine "
+            f"{p.engine!r} (got {p.local_kernel!r}): only the in-kernel "
+            "Philox schedule can thread K MCS through one launch")
     if p.obs_capacity < 0:
         raise ValueError(f"obs_capacity must be >= 0, got {p.obs_capacity}")
     for name in p.observables:
         if name not in observable_names():
             raise ValueError(f"unknown observable {name!r}; known: "
                              f"{observable_names()}")
-    if p.mesh_shape is not None:
-        raise ValueError(f"engine {p.engine!r} does not lay devices on a "
-                         "('pod','rows','cols') mesh; mesh_shape does not "
-                         "apply")
+    if p.mesh_shape is not None and "pod" not in spec.caps.mesh_axes:
+        raise ValueError(
+            f"engine {p.engine!r} does not lay devices on a "
+            f"('pod','rows','cols') mesh (mesh_axes={spec.caps.mesh_axes}); "
+            "mesh_shape only applies to pod-composable engines like "
+            "'sharded_pod'")
 
 
-def build(params, dom=None, device: Optional[DeviceLike] = None
+def build(params, dom=None, device: Optional[Devices] = None
           ) -> BuiltEngine:
     """Resolve ``params.engine`` (an ``EscgParams`` or a ``Scenario``) and
-    build it on ``device`` (default: the card). ``dom=None`` takes the
-    scenario's dominance network, or the circulant C(S, {1})."""
+    build it on ``device`` (default: the card). A ``multi_device`` engine
+    takes a sequence of devices for its mesh, in raster order, and
+    ``None`` means every visible card; the others take one device.
+    ``dom=None`` takes the scenario's dominance network, or the circulant
+    C(S, {1})."""
     from .scenarios import resolve_config  # scenarios imports this module
     params, dom = resolve_config(params, dom)
     params = params.validate()
-    dev = resolve_device(device)
+    spec = get_engine(params.engine)
+    if spec.caps.multi_device:
+        where = resolve_devices(device)
+        dev = where[0]
+    else:
+        where = dev = resolve_device(device)
     if dom is None:
         from . import dominance as dom_mod
         dom = dom_mod.circulant(params.species)
     dom = torch.as_tensor(dom, dtype=torch.float32).to(dev).contiguous()
-    return get_engine(params.engine).build(params, dom, dev)
+    return spec.build(params, dom, where)
 
 
 # --------------------------- registered engines --------------------------- #
@@ -362,3 +422,17 @@ def _build_pallas(p: "EscgParams", dom: torch.Tensor,
                                      t_eps, t_eps_mu, roll_back=False)
 
     return _build_tiled(p, device, run_round)
+
+
+@register("sharded", EngineCaps(
+    flux_only=True, tiled=True, multi_device=True, mesh_axes=("rows", "cols"),
+    local_kernels=("jnp", "pallas", "fused"), multi_mcs=True,
+    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),)))
+def _build_sharded(p: "EscgParams", dom: torch.Tensor,
+                   devices: Tuple[torch.device, ...]) -> BuiltEngine:
+    """Domain decomposition over a ('rows', 'cols') device mesh: halo
+    copies for the round's shift, then the ``local_kernel``'s round on
+    every block (K1 for 'fused', K3 for 'pallas', the plain sweep for
+    'jnp'), and the counts from ``density_counts_sharded``."""
+    from . import sharded as sharded_mod  # sharded imports this module
+    return sharded_mod.build_engine(p, dom, devices)

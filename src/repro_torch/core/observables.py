@@ -20,7 +20,14 @@ Registry contract (``@register_observable``):
   leave the kernel, so count-derived observables keep per-MCS cadence
   from the (K, S+1) counts it banks, while grid-derived ones are
   *lag-held*: the rows of a launch group repeat the value taken at the
-  group's start.
+  group's start;
+* ``block``/``finish``: how a grid-derived observable reads a lattice
+  decomposed over a device mesh (the ``sharded`` engine), no device
+  holding all of it: ``block(view, params)`` is the integer partial of
+  one block (a :class:`BlockView`), the partials are summed on the mesh's
+  first device, and ``finish(total, params)`` makes the row's slice, equal
+  to ``compute`` of the gathered lattice. An observable without them is
+  computed on the gathered lattice.
 
 The ring is a ``(capacity, width)`` float32 tensor on the device, written
 at slot ``pos % capacity``; ``pos`` counts every row ever pushed and is a
@@ -32,13 +39,13 @@ never happens).
 from __future__ import annotations
 
 from dataclasses import dataclass, field
-from typing import Callable, Dict, Optional, Tuple
+from typing import Callable, Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 __all__ = [
-    "ObservableSpec", "register_observable", "observable_names",
+    "BlockView", "ObservableSpec", "register_observable", "observable_names",
     "observable_specs", "get_observable", "resolve", "ObsPipeline",
     "build_pipeline", "ring_init", "ring_push", "ring_push_many",
     "ring_flush", "ring_capacity",
@@ -56,6 +63,21 @@ class ObservableSpec:
     post: Callable[..., np.ndarray] = field(repr=False, default=None)
     from_counts: bool = False
     description: str = ""
+    block: Optional[Callable[..., torch.Tensor]] = field(repr=False,
+                                                         default=None)
+    finish: Optional[Callable[..., torch.Tensor]] = field(repr=False,
+                                                          default=None)
+
+
+class BlockView(NamedTuple):
+    """One block of a lattice decomposed over a device mesh: its cells,
+    the global (row, col) of its first cell, and the first column of its
+    right neighbour block, (h, 1), and the first row of its lower
+    neighbour block, (1, w), on the torus, on the block's device."""
+    cells: torch.Tensor
+    offset: Tuple[int, int]
+    right: torch.Tensor
+    down: torch.Tensor
 
 
 _REGISTRY: Dict[str, ObservableSpec] = {}
@@ -64,14 +86,17 @@ _REGISTRY: Dict[str, ObservableSpec] = {}
 def register_observable(name: str, *, width: Callable[..., int],
                         from_counts: bool = False,
                         post: Optional[Callable] = None,
-                        description: str = ""):
+                        description: str = "",
+                        block: Optional[Callable] = None,
+                        finish: Optional[Callable] = None):
     """Decorator: register ``compute(grid, counts, params)`` under
     ``name``; registering a name again replaces it."""
     def deco(compute_fn):
         _REGISTRY[name] = ObservableSpec(
             name=name, width=width, compute=compute_fn,
             post=post or (lambda rows, p: rows),
-            from_counts=from_counts, description=description)
+            from_counts=from_counts, description=description, block=block,
+            finish=finish)
         return compute_fn
     return deco
 
@@ -124,18 +149,34 @@ class ObsPipeline:
     _params: object = field(repr=False, default=None)
 
     # ------------------------- device side ----------------------------- #
-    def row(self, grid: torch.Tensor, counts: torch.Tensor) -> torch.Tensor:
+    def row(self, grid, counts: torch.Tensor) -> torch.Tensor:
         """The full (width,) float32 row of one MCS."""
-        p = self._params
-        return torch.cat([_f32(s.compute(grid, counts, p)).reshape(-1)
-                          for s in self.specs])
+        return self.row_held(counts, self.grid_values(grid))
 
-    def grid_values(self, grid: torch.Tensor) -> Dict[str, torch.Tensor]:
-        """The grid-derived slices, taken at a launch-group boundary (what
-        ``k_mcs > 1`` holds); count-derived specs are left out."""
+    def grid_values(self, grid) -> Dict[str, torch.Tensor]:
+        """The grid-derived slices of an (H, W) lattice, or of a lattice
+        decomposed over a mesh (an object with ``views()``, ``gather()``
+        and ``device``, such as ``sharded.ShardedLattice``), on the
+        lattice's (first) device; count-derived specs are left out.
+        Taken at a launch-group boundary, they are what ``k_mcs > 1``
+        holds."""
         p = self._params
-        return {s.name: _f32(s.compute(grid, None, p)).reshape(-1)
-                for s in self.specs if not s.from_counts}
+        specs = [s for s in self.specs if not s.from_counts]
+        if isinstance(grid, torch.Tensor):
+            return {s.name: _f32(s.compute(grid, None, p)).reshape(-1)
+                    for s in specs}
+        out, views, whole = {}, None, None
+        for s in specs:
+            if s.block is None:
+                if whole is None:
+                    whole = grid.gather()
+                value = s.compute(whole, None, p)
+            else:
+                views = grid.views() if views is None else views
+                total = sum(s.block(v, p).to(grid.device) for v in views)
+                value = s.finish(total, p)
+            out[s.name] = _f32(value).reshape(-1)
+        return out
 
     def row_held(self, counts: torch.Tensor,
                  held: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -246,31 +287,49 @@ def _obs_densities(grid, counts, p):
     return _f32(counts)
 
 
-def _bonds(grid: torch.Tensor):
-    """The torus's right and down bonds as (cell, neighbour) pairs of views,
-    the inner bonds and then those that wrap around: no copy of the grid."""
-    return ((grid[:, :-1], grid[:, 1:]), (grid[:, -1:], grid[:, :1]),
-            (grid[:-1], grid[1:]), (grid[-1:], grid[:1]))
+def _bonds(cells: torch.Tensor, right: torch.Tensor, down: torch.Tensor):
+    """The right and down bonds of a block as (cell, neighbour) pairs of
+    views, the inner bonds and then those to the neighbours' first column
+    (``right``) and first row (``down``): no copy of the cells. For a
+    whole lattice the neighbours are its own first column and row, the
+    torus's wrap-around bonds."""
+    return ((cells[:, :-1], cells[:, 1:]), (cells[:, -1:], right),
+            (cells[:-1], cells[1:]), (cells[-1:], down))
+
+
+def _unlike(cells, right, down):
+    return sum((a != b).sum() for a, b in _bonds(cells, right, down))
+
+
+def _like(cells, right, down):
+    return sum(((a == b) & (a > 0)).sum()
+               for a, b in _bonds(cells, right, down))
+
+
+def _bond_total(total, p):
+    return _f32(total).reshape(1)
 
 
 @register_observable(
     "interface_length", width=lambda p: 1,
     post=lambda rows, p: rows / (2.0 * p.n_cells),
     description="fraction of unlike nearest-neighbour bonds on the torus "
-                "(interface length density)")
+                "(interface length density)",
+    block=lambda v, p: _unlike(v.cells, v.right, v.down),
+    finish=_bond_total)
 def _obs_interface_length(grid, counts, p):
-    n_unlike = sum((a != b).sum() for a, b in _bonds(grid))
-    return _f32(n_unlike).reshape(1)
+    return _bond_total(_unlike(grid, grid[:, :1], grid[:1]), p)
 
 
 @register_observable(
     "cluster_size", width=lambda p: 1,
     post=lambda rows, p: rows / (2.0 * p.n_cells),
     description="same-species occupied-bond density, a cluster-size "
-                "proxy")
+                "proxy",
+    block=lambda v, p: _like(v.cells, v.right, v.down),
+    finish=_bond_total)
 def _obs_cluster_size(grid, counts, p):
-    n_like = sum(((a == b) & (a > 0)).sum() for a, b in _bonds(grid))
-    return _f32(n_like).reshape(1)
+    return _bond_total(_like(grid, grid[:, :1], grid[:1]), p)
 
 
 def _snap_shape(p) -> Tuple[int, int]:
@@ -282,17 +341,46 @@ def _snap_post(rows: np.ndarray, p) -> np.ndarray:
     return rows.reshape(rows.shape[:-1] + (gh, gw))
 
 
+def _snap_segments(start: int, length: int, size: int, count: int):
+    """(coarse index, local start, local stop) of each of ``count`` coarse
+    cells of ``size`` that meets [start, start + length)."""
+    for c in range(count):
+        lo, hi = max(start, c * size), min(start + length, (c + 1) * size)
+        if lo < hi:
+            yield c, lo - start, hi - start
+
+
+def _snap_block(v: BlockView, p) -> torch.Tensor:
+    """The (gh, gw, S+1) label histogram of the coarse cells, over one
+    block's cells (a coarse cell may span several blocks)."""
+    gh, gw = _snap_shape(p)
+    h, w = v.cells.shape
+    labels = torch.arange(p.species + 1, device=v.cells.device)
+    hist = torch.zeros((gh, gw, p.species + 1), dtype=torch.int64,
+                       device=v.cells.device)
+    for cr, r0, r1 in _snap_segments(v.offset[0], h, p.height // gh, gh):
+        for cc, c0, c1 in _snap_segments(v.offset[1], w, p.length // gw,
+                                         gw):
+            hist[cr, cc] = (v.cells[r0:r1, c0:c1, None] == labels).sum(
+                dim=(0, 1))
+    return hist
+
+
+def _snap_finish(hist: torch.Tensor, p) -> torch.Tensor:
+    # torch.argmax returns the first maximum, as jnp.argmax does
+    return _f32(torch.argmax(hist, dim=-1)).reshape(-1)
+
+
 @register_observable(
     "snapshot", width=lambda p: _snap_shape(p)[0] * _snap_shape(p)[1],
     post=_snap_post,
     description="coarse lattice snapshot: the most frequent label of each "
-                "block of an (up to) 8x8 partition, the first on ties")
+                "block of an (up to) 8x8 partition, the first on ties",
+    block=_snap_block, finish=_snap_finish)
 def _obs_snapshot(grid, counts, p):
     gh, gw = _snap_shape(p)
     bh, bw = p.height // gh, p.length // gw
     blocks = (grid[: gh * bh, : gw * bw].reshape(gh, bh, gw, bw)
               .permute(0, 2, 1, 3).reshape(gh, gw, bh * bw))
     labels = torch.arange(p.species + 1, device=grid.device)
-    hist = (blocks[..., None] == labels).sum(dim=2)
-    # torch.argmax returns the first maximum, as jnp.argmax does
-    return _f32(torch.argmax(hist, dim=-1)).reshape(-1)
+    return _snap_finish((blocks[..., None] == labels).sum(dim=2), p)

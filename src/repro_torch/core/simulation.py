@@ -23,9 +23,9 @@ import numpy as np
 import torch
 
 from . import dominance as dom_mod
-from . import engines, lattice, metrics, threefry
+from . import engines, lattice, threefry
 from . import observables as obs_mod
-from .device import DeviceLike, resolve_device
+from .device import Devices
 from .params import EscgParams
 from .results import decode_observables, encode_observables
 from .scenarios import resolve_config
@@ -106,7 +106,7 @@ def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
             for seed, shift in zip(seeds.tolist(), shifts.tolist()):
                 grid, kept_mcs = built.one_mcs(grid, seed, shift)
                 kept_parts.append(kept_mcs)
-                parts.append(metrics.counts(grid, s)[None])
+                parts.append(built.counts(grid, s)[None])
             kept = _kept_total(kept_parts)
         cnts = (torch.cat(parts) if parts else
                 torch.zeros((0, s + 1), dtype=torch.int32,
@@ -157,7 +157,7 @@ def build_obs_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
             for seed, shift in zip(seeds.tolist(), shifts.tolist()):
                 grid, kept_mcs = built.one_mcs(grid, seed, shift)
                 kept_parts.append(kept_mcs)
-                row = pipe.row(grid, metrics.counts(grid, s))
+                row = pipe.row(grid, built.counts(grid, s))
                 ring, pos = obs_mod.ring_push(ring, pos, row)
             kept = _kept_total(kept_parts)
         return grid, key, ring, pos, kept, attempts
@@ -170,9 +170,13 @@ def simulate(params, dom: Optional[np.ndarray] = None,
              hooks: Sequence[Callable[[int, torch.Tensor, np.ndarray],
                                       None]] = (),
              stop_on_stasis: bool = True, *, engine=None, run=None,
-             device: Optional[DeviceLike] = None) -> SimResult:
+             device: Optional[Devices] = None) -> SimResult:
     """Run the full simulation (paper Algorithm 3.3 control flow) on
     ``device`` (default: the card; ``device='cpu'`` runs the plain path).
+    The ``sharded`` engine takes a sequence of devices for its mesh, in
+    raster order (``device=["cpu"] * 4``, ``["cuda:0"] * 4``), and
+    ``None`` means every visible card; it builds the lattice on the
+    mesh's first device and splits it into blocks over the mesh.
 
     ``simulate(scenario, engine=EngineConfig(...), run=RunConfig(...))``;
     an ``EscgParams`` in the first slot carries all three layers. ``key``
@@ -192,9 +196,10 @@ def simulate(params, dom: Optional[np.ndarray] = None,
     """
     p, dom = resolve_config(params, dom, engine, run)
     p = p.validate()
-    dev = resolve_device(device)
     if dom is None:
         dom = dom_mod.circulant(p.species)
+    eng = engines.build(p, dom, device)
+    dev = eng.device
     if key is None:
         key = threefry.PRNGKey(p.seed)
     cell_dt = getattr(torch, p.cell_dtype)
@@ -202,9 +207,8 @@ def simulate(params, dom: Optional[np.ndarray] = None,
         key, k0 = threefry.split(key)
         grid0 = lattice.init_grid(k0, p.height, p.length, p.species,
                                   p.empty, dtype=cell_dt, device=dev)
-    grid = torch.as_tensor(grid0).to(device=dev, dtype=cell_dt).contiguous()
-
-    eng = engines.build(p, dom, dev)
+    grid = eng.place(torch.as_tensor(grid0).to(device=dev, dtype=cell_dt)
+                     .contiguous())
     obs_on = bool(p.observables)
     rows_all = []
     if obs_on:
@@ -220,7 +224,7 @@ def simulate(params, dom: Optional[np.ndarray] = None,
         ring, pos = obs_mod.ring_init(cap, (pipe.width,), dev)
     else:
         chunk_fn = build_chunk_fn(p, eng)
-    hist = [metrics.counts(grid, p.species).cpu().numpy()[None]]
+    hist = [eng.counts(grid, p.species).cpu().numpy()[None]]
     mcs_done, stasis_mcs = 0, -1
     kept_total, att_total = 0, 0
 
@@ -244,8 +248,10 @@ def simulate(params, dom: Optional[np.ndarray] = None,
         alive = (cnts_h[:, 1:] > 0).sum(axis=1)
         if stop_on_stasis and stasis_mcs < 0 and np.any(alive <= 1):
             stasis_mcs = mcs_done - n_mcs + int(np.argmax(alive <= 1)) + 1
-        for hook in hooks:
-            hook(mcs_done, grid, cnts_h)
+        if hooks:
+            whole = eng.gather(grid)
+            for hook in hooks:
+                hook(mcs_done, whole, cnts_h)
         if stop_on_stasis and stasis_mcs >= 0:
             break
 
@@ -254,7 +260,8 @@ def simulate(params, dom: Optional[np.ndarray] = None,
     if rows_all:
         observables = pipe.split(np.concatenate(rows_all, axis=0))
         observables["densities"] = densities   # with the initial row
-    return SimResult(grid=grid.cpu().numpy(), observables=observables,
+    return SimResult(grid=eng.gather(grid).cpu().numpy(),
+                     observables=observables,
                      mcs_completed=mcs_done, stasis_mcs=stasis_mcs,
                      kept_fraction=(kept_total / att_total)
                      if att_total else 1.0)

@@ -8,13 +8,20 @@ sums added into a scratch buffer that the last block moves into the
 output; integer sums, so exact. Its plain version is the reference's
 one-hot sum.
 
+``density_counts_sharded`` is the count of a lattice split into blocks
+over a device mesh (the reference lifts K4 into a ``shard_map`` and
+``psum``s the partials): K4 on every block, on the block's device, and
+the (S+1,) int32 partials summed on the mesh's first device. It adds no
+kernel of its own. Its plain twin is ``density_counts_plain`` of the
+gathered lattice.
+
 The wrapper launches the kernel for a CUDA grid and takes the plain
 version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -83,3 +90,22 @@ def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     build.check(lib, err, "density_counts launch")
     LAUNCHES["density_counts"] += 1
     return out
+
+
+def density_counts_sharded(blocks: Sequence[torch.Tensor],
+                           species: int) -> torch.Tensor:
+    """Counts per label 0..S of a lattice decomposed into ``blocks`` (the
+    mesh's blocks in raster order, each contiguous on its own device):
+    K4 on every block, then the partials copied to the first block's
+    device and summed there in int32, (S+1,) int32. Integer sums do not
+    depend on their order, so this equals K4 of the gathered lattice.
+
+    Blocks on one card run in order on its current stream, so they share
+    that stream's scratch. A copy between two cards waits for the
+    partial on its card's stream (PyTorch orders a copy between devices
+    on both devices' current streams)."""
+    if not blocks:
+        raise ValueError("density_counts_sharded takes at least one block")
+    dest = blocks[0].device
+    parts = [density_counts(b, species).to(dest) for b in blocks]
+    return torch.stack(parts).sum(dim=0, dtype=torch.int32)

@@ -1,6 +1,7 @@
 """Where a path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.perf_probe [--engine E] [--out FILE]
+        [--local-kernel K]
 
 Runs park3 at 3200 x 3200 on engine ``E`` (default ``pallas_fused``, the
 main path of ``chip_smoke.py``) and reports:
@@ -21,10 +22,14 @@ main path of ``chip_smoke.py``) and reports:
 ``pallas`` and ``batched`` run one window with park3's declared
 observables (``densities``, ``interface_length``), the path users call.
 ``batched`` launches some 9,000 small kernels per MCS, so its window is
-10 MCS. (The plain ``sublattice`` engine launches some 7,700 per MCS and
-is not offered; nor is ``reference``, whose one MCS at 3200 x 3200 is
-10.24 M sequential steps: ``chip_smoke.py`` times it with events.) It
-prints one JSON object, also written to ``--out``. It needs a card.
+10 MCS. ``sharded`` runs one window of 50 MCS with ``--local-kernel`` (K,
+default ``fused``, observables off; ``pallas`` with park3's declared
+observables) on a (2, 2) mesh of four ``cuda:0`` entries, the whole
+decomposition on one card. (The plain
+``sublattice`` engine launches some 7,700 per MCS and is not offered;
+nor is ``reference``, whose one MCS at 3200 x 3200 is 10.24 M
+sequential steps: ``chip_smoke.py`` times it with events.) It prints one
+JSON object, also written to ``--out``. It needs a card.
 """
 from __future__ import annotations
 
@@ -41,8 +46,9 @@ from .core.scenarios import (EngineConfig, RunConfig, compose,
 from .core.simulation import simulate
 
 SIDE, TILE = 3200, (8, 32)
+SHARD_GRID = (2, 2)         # the sharded engine's mesh, all on cuda:0
 # MCS in a profiled window, by engine
-WINDOW = {"pallas_fused": 100, "pallas": 100, "batched": 10}
+WINDOW = {"pallas_fused": 100, "pallas": 100, "batched": 10, "sharded": 50}
 
 
 def _device_us(evt) -> float:
@@ -52,11 +58,14 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _window(engine: str, k_mcs: int, observables) -> dict:
+def _window(engine: str, k_mcs: int, observables, device=None,
+            **engine_kw) -> dict:
     window = WINDOW[engine]
-    args = dict(engine=EngineConfig(engine=engine, tile=TILE, k_mcs=k_mcs),
+    args = dict(engine=EngineConfig(engine=engine, tile=TILE, k_mcs=k_mcs,
+                                    **engine_kw),
                 run=RunConfig(length=SIDE, height=SIDE, mcs=window,
-                              chunk_mcs=window, observables=observables))
+                              chunk_mcs=window, observables=observables),
+                device=device)
     simulate(make_scenario("park3"), **args)            # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -78,7 +87,7 @@ def _window(engine: str, k_mcs: int, observables) -> dict:
                                + _device_us(evt) / window / 1e3)
     busy = sum(by_kernel.values())
     traced_ms = traced / window * 1e3
-    return {"engine": engine, "k_mcs": k_mcs, "mcs": window,
+    return {"engine": engine, "k_mcs": k_mcs, "mcs": window, **engine_kw,
             "observables": "declared" if observables is None else "off",
             "wall_ms_per_mcs": untraced,
             "traced_wall_ms_per_mcs": traced_ms,
@@ -151,7 +160,13 @@ def main(argv=None) -> int:
     ap.add_argument("--engine", default="pallas_fused",
                     choices=tuple(WINDOW))
     ap.add_argument("--out", default=None)
+    ap.add_argument("--local-kernel", default="fused",
+                    choices=("fused", "pallas", "jnp"))
     args = ap.parse_args(argv)
+    shard = {}
+    if args.engine == "sharded":
+        shard = dict(shard_grid=SHARD_GRID, local_kernel=args.local_kernel)
+    n_blocks = SHARD_GRID[0] * SHARD_GRID[1]
     if not torch.cuda.is_available():
         raise SystemExit("perf_probe needs a CUDA card")
     card = subprocess.run(
@@ -160,8 +175,9 @@ def main(argv=None) -> int:
         check=True, timeout=60).stdout.strip().splitlines()[0]
     built = engines.build(
         compose(make_scenario("park3"),
-                EngineConfig(engine=args.engine, tile=TILE),
-                RunConfig(length=SIDE, height=SIDE)), device="cpu")
+                EngineConfig(engine=args.engine, tile=TILE, **shard),
+                RunConfig(length=SIDE, height=SIDE)),
+        device=["cpu"] * n_blocks if shard else "cpu")
     t0 = time.perf_counter()
     built.schedule(threefry.PRNGKey(0), 100)
     chain_us = (time.perf_counter() - t0) / 100 * 1e6
@@ -174,6 +190,10 @@ def main(argv=None) -> int:
     elif args.engine == "pallas":
         report["tile_stream_batch_ms_per_mcs"] = _stream_ms()
         report["windows"] = [_window(args.engine, 1, None)]
+    elif args.engine == "sharded":
+        report["windows"] = [_window(
+            args.engine, 1, () if args.local_kernel == "fused" else None,
+            ["cuda:0"] * n_blocks, **shard)]
     else:
         report.update(_batched_parts_ms())
         report["windows"] = [_window(args.engine, 1, None)]

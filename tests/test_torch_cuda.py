@@ -9,7 +9,9 @@ The kernels are held to their plain PyTorch versions (which
 ``test_torch_kernels.py`` holds to the JAX package on the CPU), and
 ``simulate`` on the card to the fused and reference goldens, to itself
 across ``k_mcs`` and observables, the ``pallas`` engine to
-``sublattice``, and ``batched`` to the CPU and to S1 dropping conflicts.
+``sublattice``, ``batched`` to the CPU and to S1 dropping conflicts, and
+the ``sharded`` engine on a mesh of one card's entries to its
+single-device twins.
 """
 import hashlib
 import json
@@ -19,12 +21,14 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import batched, dominance, lattice, rng, threefry
+from repro_torch.core import (batched, dominance, lattice, rng, sharded,
+                              threefry)
 from repro_torch.core.scenarios import EngineConfig, RunConfig, make_scenario
 from repro_torch.core.simulation import simulate
 from repro_torch.kernels import density, escg_update, ops, philox
 from repro_torch.kernels import reference_scan
 from repro_torch.kernels import escg_update_fused as fused
+from repro_torch.parallel.sharding import lattice_mesh
 
 pytestmark = pytest.mark.cuda
 
@@ -68,11 +72,13 @@ ROUND_CASES = [
 @pytest.mark.parametrize("hw,tile,k,shift", ROUND_CASES)
 @pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
                                         (torch.int16, 4)])
-@pytest.mark.parametrize("offset,gtw", [((0, 0), None), ((3, 7), 111)])
+@pytest.mark.parametrize("offset,gtw", [((0, 0), None), ((3, 7), 111),
+                                        ((4, 4), 8)])
 def test_round_kernel_equals_plain(cuda, dtype, nbhd, offset, gtw, hw, tile,
                                    k, shift):
     """K1 (with the roll fused into its tile load) against ``torch.roll``
-    followed by the plain K1."""
+    followed by the plain K1; ``tile_offset`` (4, 4) with ``grid_tiles_w``
+    8 is block (1, 1) of a (2, 2) mesh, as the sharded engine calls it."""
     grid = lattice.init_grid(threefry.PRNGKey(1), *hw, 5, 0.1, dtype=dtype,
                              device=cuda)
     dom, dirs = _tables(5, cuda)
@@ -352,3 +358,56 @@ def test_reference_golden_and_batched_on_the_card(cuda):
     on_card, on_host = run(None), run("cpu")
     np.testing.assert_array_equal(on_card.grid, on_host.grid)
     assert on_card.kept_fraction == on_host.kept_fraction < 1.0
+
+
+# ------------------------ the sharded engine, one card --------------------- #
+
+@pytest.mark.parametrize("species", [3, 40])
+def test_density_counts_sharded_on_one_card_equals_plain(cuda, species):
+    grid = torch.randint(-2, species + 4, (96, 160), device=cuda,
+                         generator=torch.Generator(cuda).manual_seed(1),
+                         dtype=torch.int32)
+    lat = sharded.place(grid, lattice_mesh((2, 2), 96, 160, 8, 8,
+                                           devices=["cuda:0"] * 4))
+    before = density.LAUNCHES["density_counts"]
+    got = density.density_counts_sharded(lat.flat, species)
+    torch.cuda.synchronize()
+    assert density.LAUNCHES["density_counts"] == before + 4
+    assert torch.equal(got, density.density_counts_plain(grid, species))
+
+
+@pytest.mark.parametrize("local_kernel,single,kernel", [
+    ("fused", "pallas_fused", "escg_tile_round_fused"),
+    ("pallas", "pallas", "escg_tile_round")])
+def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
+                                                  kernel):
+    """A (2, 2) mesh of four ``cuda:0`` entries: one kernel launch per
+    block and MCS, K4 per block for every count, no ``torch.roll``, and
+    the single-device engine's lattice and streams."""
+    def run(engine, device, **kw):
+        return simulate(make_scenario("park3"),
+                        engine=EngineConfig(engine=engine, tile=(8, 16),
+                                            **kw),
+                        run=RunConfig(length=128, height=64, mcs=4,
+                                      chunk_mcs=2), stop_on_stasis=False,
+                        device=device)
+    real_roll, rolls = torch.roll, [0]
+
+    def counted_roll(*args, **kwargs):
+        rolls[0] += 1
+        return real_roll(*args, **kwargs)
+    ops.reset_launches()
+    torch.roll = counted_roll
+    try:
+        got = run("sharded", ["cuda:0"] * 4, shard_grid=(2, 2),
+                  local_kernel=local_kernel)
+    finally:
+        torch.roll = real_roll
+    counted = ops.launches()
+    assert counted[kernel] == 4 * 4 and counted["density_counts"] == 4 * 5
+    assert rolls[0] == 0
+    want = run(single, cuda)
+    np.testing.assert_array_equal(got.grid, want.grid)
+    for name in ("densities", "interface_length"):
+        np.testing.assert_array_equal(got.observables[name],
+                                      want.observables[name])

@@ -155,7 +155,7 @@ def test_no_device_means_the_card(monkeypatch):
         convert.grid_from_jax(np.zeros((8, 8), np.int32))
 
 
-@pytest.mark.parametrize("engine", ["sharded", "sharded_pod"])
+@pytest.mark.parametrize("engine", ["sharded_pod"])
 def test_unported_engines_are_refused(engine):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
         simulate(make_scenario("park3"), engine=EngineConfig(engine=engine),
@@ -250,6 +250,8 @@ def test_port_imports_no_jax():
             "import repro_torch.kernels.philox\n"
             "import repro_torch.kernels.reference_scan\n"
             "import repro_torch.core.batched, repro_torch.core.reference\n"
+            "import repro_torch.core.sharded\n"
+            "import repro_torch.parallel.sharding\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "print(bad)\n")
