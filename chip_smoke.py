@@ -3,15 +3,16 @@
 
     python3 chip_smoke.py
 
-Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5
-and S1) from ``src/repro_torch/kernels/csrc``, holds each against its
+Run from the root of a checkout. It builds the port's CUDA kernels (K1-K5,
+K4s and S1) from ``src/repro_torch/kernels/csrc``, holds each against its
 plain PyTorch version on the card (K1, K2 and K3 also at the edges of
 their shared-memory staging: every lattice type, both neighbourhoods, four
 tiles, partial blocks of tiles, K other than th * tw, fused shifts; K4
 over lattice types, label counts on both sides of its register bins,
 labels outside 0..S, ragged lengths and a misaligned view; S1 over
-lattice types, neighbourhoods, boundaries and ``drop_conflicts``, and
-against ``batched.run_proposals`` at 3200 x 3200), reproduces
+lattice types, neighbourhoods, boundaries and ``drop_conflicts`` on 12 x
+12 and 64 x 64, one MCS at 1600 x 1600 and at 3200 x 3200, and against
+``batched.run_proposals`` at 3200 x 3200), reproduces
 ``tests/golden/fused_trajectory.json`` and
 ``tests/golden/reference_trajectory.json`` through ``simulate`` on the
 card, and drives the port's paths through the entry points a user calls,
@@ -26,16 +27,16 @@ each with the launch counts set to 0 just before it and read just after:
   (K5);
 * park3 at 3200 x 3200 on the default ``batched`` engine, observables off
   and declared (K4 only), held to the CPU at 800 x 800;
-* park3 at 1600 x 1600 on the sequential ``reference`` engine for one MCS
-  (S1, K4);
+* park3 at 3200 x 3200 on the sequential ``reference`` engine for three
+  MCS (S1 once per MCS, K4);
 * park3 at 3200 x 3200 on the domain-decomposed ``sharded`` engine over a
   (2, 2) mesh of four ``cuda:0`` entries: ``local_kernel='fused'`` (K1
-  per block and K4 per block, no ``torch.roll``) held to ``pallas_fused``,
-  again on a (1, 1) mesh with ``k_mcs`` 10 (K2); ``'pallas'`` with park3's
-  declared observables (K3 and K4 per block) held to ``pallas``; and
-  ``'jnp'`` at 256 x 256 held to ``'pallas'``. ``density_counts_sharded``
-  (K4 per block plus a sum over the mesh) is held to the plain count of
-  the whole lattice.
+  per block and one K4s launch per count, no ``torch.roll``) held to
+  ``pallas_fused``, again on a (1, 1) mesh with ``k_mcs`` 10 (K2);
+  ``'pallas'`` with park3's declared observables (K3 per block, K4s) held
+  to ``pallas``; and ``'jnp'`` at 256 x 256 held to ``'pallas'``.
+  ``density_counts_sharded`` (K4s: one grouped launch over the card's
+  blocks) is held to the plain count of the whole lattice.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -58,10 +59,11 @@ REF_GOLDEN = os.path.join(HERE, "tests", "golden",
 
 SIDE, TILE, MCS, CHUNK = 3200, (8, 32), 200, 100
 K_MCS = 10
-# each kernel's ms per launch before its redesign for shared-memory
-# staging or wide loads (PERF.md's kernel table; an NVIDIA H100 80GB HBM3
-# at 700 W), printed beside this run's
-PREVIOUS_MS = {"K1": 0.5462, "K2": 7.1767, "K3": 0.9684, "K4": 0.0273}
+# each kernel's ms per launch before its redesign (PERF.md's kernel table;
+# S1's, one MCS at 3200 x 3200, from kernels/probe/s1_probe.cu; an NVIDIA
+# H100 80GB HBM3 at 700 W), printed beside this run's
+PREVIOUS_MS = {"K1": 0.5462, "K2": 7.1767, "K3": 0.9684, "K4": 0.0273,
+               "K4s": 0.0822, "S1": 5762.722}
 # K1's and K2's ms per launch after their redesign (the same table)
 REDESIGNED_MS = {"K1": 0.1289, "K2": 1.1594}
 # the edge cases' lattice: 900 to 3,600 tiles for the tiles below, never a
@@ -93,12 +95,22 @@ OPS_PER_COUNTED_CELL = 6
 # key additions = 60, the counter and the store 2.
 OPS_PER_COUNTER = 62
 K5_WORDS = 1 << 26
-# S1's cases: a 64 x 64 lattice with a whole and a ragged number of
-# proposals; the lattice of the reference path (one MCS of N proposals),
-# 1600 x 1600: at 3200 x 3200 one MCS is 10.24 M sequential steps, some
-# 6 s on the card and more in the host loop it is held to
-S1_SIDE, S1_PROPS = 64, (4096, 4097)
-REF_SIDE = 1600
+# S1's cases: a 12 x 12 (the reference golden's) and a 64 x 64 lattice with
+# a whole and a ragged number of its 256-step windows and 4,096 proposals;
+# then one MCS at 1600 x 1600 and at 3200 x 3200 (10.24 M steps) in
+# 1,024-step windows, held to the host loop
+S1_SIDES, S1_PROPS = (12, 64), (4096, 4097)
+# S1's ns per step before its redesign (one thread walking the stream; an
+# NVIDIA H100 80GB HBM3 at 700 W): 1600 x 1600 and the batched window
+# with drop_conflicts at 3200 x 3200 from PERF.md's kernel table;
+# 12 x 12, 64 x 64 and one MCS at 3200 x 3200 from
+# src/repro_torch/kernels/probe/s1_probe.cu
+S1_PREVIOUS_NS = {12: 342.96, 64: 342.6, 1600: 470.6, 3200: 562.77,
+                  "window": 729.7}
+# the reference path: park3 at 3200 x 3200 for this many MCS; S1 alone for
+# one MCS at these sides
+REF_SIDE, REF_MCS = 3200, 3
+S1_MCS_SIDES = (1600, REF_SIDE)
 # S1 per step: 4 proposal fields and the two cells it reads and writes
 OPS_PER_SCAN_STEP = 40
 # the batched path held to the CPU at this side for this many MCS
@@ -750,13 +762,12 @@ def main():
 
     # ---- 15. [S1] the sequential scan against its plain version ----
     s1_err = 0.0
-    for dtype, nbhd, flux, drop, n_props in itertools.product(
-            (torch.int8, torch.int16, torch.int32), (4, 8), (True, False),
-            (False, True), S1_PROPS):
-        g = grid_on_card(S1_SIDE, 5, dtype, 5)
+    for side, dtype, nbhd, flux, drop, n_props in itertools.product(
+            S1_SIDES, (torch.int8, torch.int16, torch.int32), (4, 8),
+            (True, False), (False, True), S1_PROPS):
+        g = grid_on_card(side, 5, dtype, 5)
         props = rng.proposal_batch(threefry.PRNGKey(n_props + nbhd),
-                                   n_props, S1_SIDE * S1_SIDE, nbhd,
-                                   device=dev)
+                                   n_props, side * side, nbhd, device=dev)
         ga, ka = reference_scan.reference_scan(g, *props, dom5, dirs, 0.25,
                                                0.6, flux, drop)
         gb, kb = reference_scan.reference_scan_plain(g, *props, dom5, 0.25,
@@ -766,63 +777,63 @@ def main():
               f"S1 returned {ga.dtype}, kept {int(ka)} of {n_props}")
         s1_err = max(s1_err, max_err(torch, ga, gb),
                      abs(int(ka) - int(kb)))
-    print(f"[S1] {S1_SIDE}x{S1_SIDE}, {S1_PROPS} proposals, int8, int16, "
+    print(f"[S1] {S1_SIDES} sides, {S1_PROPS} proposals, int8, int16, "
           f"int32, nbhd 4, 8, flux True, False, drop_conflicts False, "
           f"True: max_abs_err {s1_err} (grid and kept) against the host "
           f"loop")
     n_window = p.n_cells // engines._pick_sub_batches(p.n_cells)
     window = rng.proposal_batch(threefry.PRNGKey(6), n_window, p.n_cells, 4,
                                 device=dev)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
     ga, ka = reference_scan.reference_scan(g_main, *window, dom, dirs, te,
                                            tem, True, True)
-    stop.record()
     gb, kb = batched.run_proposals(g_main, window, te, tem, dom, True)
     torch.cuda.synchronize()
-    window_ms = start.elapsed_time(stop)
+    window_ms = event_ms(torch, lambda: reference_scan.reference_scan(
+        g_main, *window, dom, dirs, te, tem, True, True), 5)
     err = max(max_err(torch, ga, gb), abs(int(ka) - int(kb)))
     s1_err = max(s1_err, err)
     print(f"[S1] {SIDE}x{SIDE} one batched window of {n_window} proposals: "
           f"S1 with drop_conflicts against batched.run_proposals on the "
           f"card: max_abs_err {err} (grid and kept), kept {int(ka)}; S1 "
-          f"{window_ms:.1f} ms ({window_ms / n_window * 1e6:.1f} ns per "
-          f"step)")
-    g_ref = grid_on_card(REF_SIDE, 3, torch.int32, 0)
-    n_ref = REF_SIDE * REF_SIDE
-    ref_props = rng.proposal_batch(threefry.PRNGKey(8), n_ref, n_ref, 4,
-                                   device=dev)
-    torch.cuda.synchronize()
-    start.record()
-    ga, ka = reference_scan.reference_scan(g_ref, *ref_props, dom, dirs, te,
-                                           tem, True)
-    stop.record()
-    torch.cuda.synchronize()
-    s1_ms = start.elapsed_time(stop)
-    t0 = time.perf_counter()
-    gb, kb = reference_scan.reference_scan_plain(g_ref, *ref_props, dom, te,
-                                                 tem, True)
-    torch.cuda.synchronize()
-    s1_plain = (time.perf_counter() - t0) * 1e3
-    err = max(max_err(torch, ga, gb), abs(int(ka) - int(kb)))
-    s1_err = max(s1_err, err)
-    print(f"[S1] {REF_SIDE}x{REF_SIDE} one MCS of {n_ref} proposals (the "
-          f"reference path's shape): max_abs_err {err} against the host "
-          f"loop; S1 {s1_ms:.1f} ms ({s1_ms / n_ref * 1e6:.1f} ns per "
-          f"step), host loop {s1_plain:.1f} ms")
+          f"{window_ms:.3f} ms ({window_ms / n_window * 1e6:.2f} ns per "
+          f"step; before the redesign {S1_PREVIOUS_NS['window']} ns)")
+    s1_ms, s1_plain, ns_per_step = {}, {}, {}
+    for side in S1_MCS_SIDES:
+        g_ref = grid_on_card(side, 3, torch.int32, 0)
+        n_ref = side * side
+        ref_props = rng.proposal_batch(threefry.PRNGKey(8), n_ref, n_ref, 4,
+                                       device=dev)
+        ga, ka = reference_scan.reference_scan(g_ref, *ref_props, dom, dirs,
+                                               te, tem, True)
+        s1_ms[side] = event_ms(torch, lambda: reference_scan.reference_scan(
+            g_ref, *ref_props, dom, dirs, te, tem, True), 5)
+        t0 = time.perf_counter()
+        gb, kb = reference_scan.reference_scan_plain(g_ref, *ref_props, dom,
+                                                     te, tem, True)
+        torch.cuda.synchronize()
+        s1_plain[side] = (time.perf_counter() - t0) * 1e3
+        err = max(max_err(torch, ga, gb), abs(int(ka) - int(kb)))
+        s1_err = max(s1_err, err)
+        ns_per_step[side] = s1_ms[side] / n_ref * 1e6
+        print(f"[S1] {side}x{side} one MCS of {n_ref} proposals: max_abs_err "
+              f"{err} (grid and kept) against the host loop; S1 "
+              f"{s1_ms[side]:.3f} ms ({ns_per_step[side]:.2f} ns per step; "
+              f"before the redesign {S1_PREVIOUS_NS[side]} ns, "
+              f"{S1_PREVIOUS_NS[side] / ns_per_step[side]:.1f}x), host loop "
+              f"{s1_plain[side]:.1f} ms; {card}")
     check(s1_err == 0.0, f"S1 disagrees ({s1_err})")
     n_l1 = 1 << 20
-    l1_props = rng.proposal_batch(threefry.PRNGKey(9), n_l1,
-                                  S1_SIDE * S1_SIDE, 4, device=dev)
-    g_l1 = grid_on_card(S1_SIDE, 3, torch.int32, 9)
-    l1_ms = event_ms(torch, lambda: reference_scan.reference_scan(
-        g_l1, *l1_props, dom, dirs, te, tem, True), 3)
-    print(f"[S1] latency floor: {l1_ms / n_l1 * 1e6:.1f} ns per step with "
-          f"the {S1_SIDE}x{S1_SIDE} lattice in L1 ({n_l1} proposals), "
-          f"against {s1_ms / n_ref * 1e6:.1f} ns at {REF_SIDE}x{REF_SIDE} "
-          f"and {window_ms / n_window * 1e6:.1f} ns at {SIDE}x{SIDE}")
+    for side in S1_SIDES:
+        l1_props = rng.proposal_batch(threefry.PRNGKey(9), n_l1, side * side,
+                                      4, device=dev)
+        g_l1 = grid_on_card(side, 3, torch.int32, 9)
+        ns_per_step[side] = event_ms(
+            torch, lambda: reference_scan.reference_scan(
+                g_l1, *l1_props, dom, dirs, te, tem, True), 3) / n_l1 * 1e6
+        print(f"[S1] {side}x{side}, {n_l1} proposals (most steps share a "
+              f"cell with an earlier one of their window): "
+              f"{ns_per_step[side]:.2f} ns per step (before the redesign "
+              f"{S1_PREVIOUS_NS[side]} ns); {card}")
 
     # ---- 16. [golden] the reference golden through simulate ----
     with open(REF_GOLDEN) as f:
@@ -906,35 +917,43 @@ def main():
     ops.reset_launches()
     t0 = time.perf_counter()
     r = simulate(park3, engine=EngineConfig(engine="reference"),
-                 run=RunConfig(length=REF_SIDE, height=REF_SIDE, mcs=1,
-                               observables=()),
+                 run=RunConfig(length=REF_SIDE, height=REF_SIDE, mcs=REF_MCS,
+                               chunk_mcs=1, observables=()),
                  hooks=[lambda m, g, c: stamps.append(time.perf_counter())])
-    launches["reference"] = ops.launches()
-    check(launches["reference"]["reference_scan"] == 1
-          and launches["reference"]["density_counts"] == 2
-          and sum(launches["reference"].values()) == 3,
-          f"the reference path did not run through S1 and K4: "
-          f"{launches['reference']}")
+    wall = time.perf_counter() - t0
+    launches["reference"] = counted = ops.launches()
+    check(counted["reference_scan"] == REF_MCS
+          and counted["density_counts"] == REF_MCS + 1
+          and sum(counted.values()) == 2 * REF_MCS + 1,
+          f"the reference path did not run through S1 and K4: {counted}")
     check(r.grid.shape == (REF_SIDE, REF_SIDE) and r.kept_fraction == 1.0
-          and r.densities.shape == (2, 4)
+          and r.mcs_completed == REF_MCS
+          and r.densities.shape == (REF_MCS + 1, 4)
+          and np.isfinite(r.densities).all()
           and np.abs(r.densities.sum(axis=1) - 1.0).max() < 1e-12,
           "the reference path's result is malformed")
-    print(f"[reference] park3 {REF_SIDE}x{REF_SIDE} 1 MCS: "
-          f"{(stamps[0] - t0) * 1e3:.1f} ms/MCS incl. set-up; launches "
-          f"{launches['reference']}; final densities "
-          f"{r.densities[-1].tolist()}")
+    ref_ms = [(b - a) * 1e3 for a, b in zip(stamps, stamps[1:])]
+    print(f"[reference] park3 {REF_SIDE}x{REF_SIDE} {REF_MCS} MCS: "
+          f"{wall:.3f}s incl. set-up; MCS after the first "
+          f"{[round(x, 4) for x in ref_ms]} ms; launches {counted}; "
+          f"kept_fraction {r.kept_fraction}; final densities "
+          f"{r.densities[-1].tolist()}; {card}")
 
-    # S1's bound: each proposal read once (16 bytes), the lattice read once
-    # and written once
-    s1_bound, s1_by = bound(16 * n_ref + 2 * g_ref.element_size() * n_ref,
+    # S1's bound at the reference path's shape: each proposal read once
+    # (16 bytes), the lattice read once and written once
+    n_ref = REF_SIDE * REF_SIDE
+    s1_bound, s1_by = bound(16 * n_ref + 2 * 4 * n_ref,
                             n_ref * OPS_PER_SCAN_STEP)
-    print(f"[time] S1: {s1_ms:.1f} ms per launch ({n_ref} proposals, "
-          f"{REF_SIDE}x{REF_SIDE}), plain (the host loop) {s1_plain:.1f} ms, "
-          f"bound {s1_bound * 1e3:.1f} us by {s1_by}, {s1_bound / s1_ms:.2e} "
-          f"of the bound's time; the steps are one chain of dependent loads "
-          f"and stores, {l1_ms / n_l1 * 1e6:.1f} ns per step with the "
-          f"lattice in L1; library call: none computes a sequential scan; "
-          f"{card}")
+    print(f"[time] S1: {s1_ms[REF_SIDE]:.3f} ms per launch ({n_ref} "
+          f"proposals, {REF_SIDE}x{REF_SIDE}; before the redesign "
+          f"{PREVIOUS_MS['S1']} ms, "
+          f"{PREVIOUS_MS['S1'] / s1_ms[REF_SIDE]:.1f}x), plain (the host "
+          f"loop) {s1_plain[REF_SIDE]:.1f} ms, bound {s1_bound * 1e3:.1f} us "
+          f"by {s1_by}, {s1_bound / s1_ms[REF_SIDE]:.2e} of the bound's "
+          f"time; ns per step by side "
+          f"{ {k: round(v, 2) for k, v in sorted(ns_per_step.items())} } "
+          f"(before {S1_PREVIOUS_NS}); library call: none computes a "
+          f"sequential scan; {card}")
 
     # ---- 19. [K4s] the histogram of a lattice decomposed over a mesh ----
     mesh4 = ["cuda:0"] * (SH_GRID[0] * SH_GRID[1])
@@ -942,28 +961,41 @@ def main():
         SH_GRID, SIDE, SIDE, th, tw, devices=mesh4))
     ops.reset_launches()
     k4s = density.density_counts_sharded(lat_main.flat, 3)
-    k4s_launches = ops.launches()["density_counts"]
+    k4s_launches = ops.launches()
     whole = density.density_counts(g_main, 3)
     torch.cuda.synchronize()
     k4s_err = max(max_err(torch, k4s,
                           density.density_counts_plain(g_main, 3)),
                   max_err(torch, k4s, whole))
-    check(k4s_launches == len(mesh4),
-          f"density_counts_sharded made {k4s_launches} K4 launches")
+    check(k4s_launches["density_counts_sharded"] == 1
+          and k4s_launches["density_counts"] == 0,
+          f"density_counts_sharded did not make one grouped launch: "
+          f"{k4s_launches}")
     check(k4s_err == 0.0, f"K4s disagrees with the plain count of the "
           f"whole lattice ({k4s_err})")
-    k4_err = max(k4_err, k4s_err)
     k4s_ms = event_ms(torch, lambda: density.density_counts_sharded(
         lat_main.flat, 3), 100)
+    k4s_device_ms = profiled_ms(torch, lambda: density.density_counts_sharded(
+        lat_main.flat, 3), 100, "density_grouped_kernel")
     k4s_plain = event_ms(torch, lambda: density.density_counts_plain(
         lat_main.gather(), 3), 10)
     k4s_lib = event_ms(torch, lambda: torch.stack(
         [torch.bincount(b.reshape(-1), minlength=4)
          for b in lat_main.flat]).sum(dim=0), 100)
+    # the previous design in this run: K4 per block, a stack and a sum
+    k4s_before = event_ms(torch, lambda: torch.stack(
+        [density.density_counts(b, 3) for b in lat_main.flat]).sum(
+            dim=0, dtype=torch.int32), 100)
+    k4s_device = ("not measured (the profiler saw no device time)"
+                  if k4s_device_ms is None else f"{k4s_device_ms:.4f} ms")
     print(f"[K4s] density_counts_sharded of park3's {SIDE}x{SIDE} lattice "
-          f"on a {SH_GRID} mesh of cuda:0: {k4s_launches} K4 launches, "
+          f"on a {SH_GRID} mesh of cuda:0: launches {k4s_launches}, "
           f"max_abs_err {k4s_err} against the plain count and K4 of the "
-          f"whole lattice; {k4s_ms:.4f} ms (K4 on the whole lattice "
+          f"whole lattice; {k4s_ms:.4f} ms per launch, device time by the "
+          f"profiler {k4s_device} (before the redesign {PREVIOUS_MS['K4s']} "
+          f"ms, {PREVIOUS_MS['K4s'] / k4s_ms:.2f}x; in this run, K4 per "
+          f"block plus the stack and sum {k4s_before:.4f} ms; K4 on the "
+          f"whole lattice "
           f"{k4_ms:.4f} ms), plain of the gathered lattice {k4s_plain:.4f} "
           f"ms, bound {k4_bound * 1e3:.1f} us by {k4_by}, library call "
           f"(torch.bincount per block plus the sum) {k4s_lib:.4f} ms; "
@@ -1001,9 +1033,11 @@ def main():
                           shard_grid=SH_GRID, local_kernel="fused")
     counted = launches["sharded_fused"]
     check(counted["escg_tile_round_fused"] == n_blocks * SH_MCS
-          and counted["density_counts"] == n_blocks * (SH_MCS + 1)
+          and counted["density_counts_sharded"] == SH_MCS + 1
+          and counted["density_counts"] == 0
           and counted["escg_tile_rounds_fused"] == 0,
-          f"sharded/fused did not run K1 and K4 per block: {counted}")
+          f"sharded/fused did not run K1 per block and one K4s launch per "
+          f"count: {counted}")
     check(rolls["sharded_fused"] == 0, f"sharded/fused rolled the lattice "
           f"outside K1 ({rolls['sharded_fused']} torch.roll calls)")
     check(same(sh_f, twin) and sh_f.grid.shape == (SIDE, SIDE)
@@ -1023,7 +1057,8 @@ def main():
     k2_launches = SH_MCS // SH_CHUNK * -(-SH_CHUNK // K_MCS)
     check(counted["escg_tile_rounds_fused"] == k2_launches
           and counted["escg_tile_round_fused"] == 0
-          and counted["density_counts"] == 1,
+          and counted["density_counts_sharded"] == 1
+          and counted["density_counts"] == 0,
           f"sharded/fused (1, 1) k_mcs={K_MCS} did not run K2: {counted}")
     check(same(sh_k, twin), f"sharded/fused (1, 1) k_mcs={K_MCS} differs "
           "from pallas_fused")
@@ -1050,8 +1085,10 @@ def main():
                           local_kernel="pallas")
     counted = launches["sharded_pallas"]
     check(counted["escg_tile_round"] == n_blocks * SH_MCS
-          and counted["density_counts"] == n_blocks * (SH_MCS + 1),
-          f"sharded/pallas did not run K3 and K4 per block: {counted}")
+          and counted["density_counts_sharded"] == SH_MCS + 1
+          and counted["density_counts"] == 0,
+          f"sharded/pallas did not run K3 per block and one K4s launch per "
+          f"count: {counted}")
     check(rolls["sharded_pallas"] == 0, f"sharded/pallas rolled the "
           f"lattice outside K3 ({rolls['sharded_pallas']} torch.roll calls)")
     check(set(sh_p.observables) == {"densities", "interface_length"}
@@ -1097,11 +1134,16 @@ def main():
          "bound_ms": k3_bound, "bound_by": k3_by, "library_ms": None},
         {"name": "density_counts", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/density.cu",
-         "replaces": "src/repro/kernels/density.py:41; "
-                     "src/repro/kernels/density.py:60",
+         "replaces": "src/repro/kernels/density.py:41",
          "launches": launches["pallas"]["density_counts"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain,
          "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4_lib},
+        {"name": "density_counts_sharded", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/density.cu",
+         "replaces": "src/repro/kernels/density.py:60",
+         "launches": launches["sharded_fused"]["density_counts_sharded"],
+         "max_abs_err": k4s_err, "ms": k4s_ms, "plain_ms": k4s_plain,
+         "bound_ms": k4_bound, "bound_by": k4_by, "library_ms": k4s_lib},
         {"name": "philox_bits", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/philox.cu",
          "replaces": "src/repro/kernels/philox.py:101",
@@ -1112,7 +1154,8 @@ def main():
          "source": "src/repro_torch/kernels/csrc/reference_scan.cu",
          "replaces": "src/repro/core/reference.py:24",
          "launches": launches["reference"]["reference_scan"],
-         "max_abs_err": s1_err, "ms": s1_ms, "plain_ms": s1_plain,
+         "max_abs_err": s1_err, "ms": s1_ms[REF_SIDE],
+         "plain_ms": s1_plain[REF_SIDE],
          "bound_ms": s1_bound, "bound_by": s1_by, "library_ms": None},
     ]}))
     print(card, flush=True)

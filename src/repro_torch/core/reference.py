@@ -8,8 +8,9 @@ either of its cells, and its cells count as touched all the same. With
 matching windows this equals ``batched.run_proposals`` bit for bit.
 
 On the card the scan is kernel S1 (``kernels/reference_scan.py``), one
-thread walking the stream in order; on the CPU it is that kernel's plain
-version, a host loop, which suits small lattices only.
+block walking the stream in windows that it applies in parallel where no
+two steps share a cell and in order where they do; on the CPU it is that
+kernel's plain version, a host loop, which suits small lattices only.
 """
 from __future__ import annotations
 

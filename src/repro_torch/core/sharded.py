@@ -20,8 +20,9 @@ ci) on ``mesh.devices[ri][ci]`` (:class:`ShardedLattice`). One round:
 3. the shift is accumulated, not rolled back, as on the single-device
    engines, so the gathered lattice is in their frame.
 
-The counts of every MCS come from ``density_counts_sharded`` (K4 on each
-block, the partials summed on the mesh's first device). Because the
+The counts of every MCS come from ``density_counts_sharded`` (K4s: one
+launch over a device's blocks, the devices' partials summed on the mesh's
+first device). Because the
 streams are keyed by global tile id, a run is bit-identical to the
 single-device engine of its family for every mesh: ``sublattice`` for
 ``'jnp'`` and ``'pallas'``, ``pallas_fused`` for ``'fused'``.
@@ -312,7 +313,7 @@ def make_local_round(p, dom: torch.Tensor, mesh: LatticeMesh):
 
 def sharded_counts(lattice: ShardedLattice, species: int) -> torch.Tensor:
     """Global (S+1,) int32 counts of a decomposed lattice on the mesh's
-    first device: K4 per block plus their sum (``density_counts_sharded``)."""
+    first device: one K4s launch per device (``density_counts_sharded``)."""
     return density_counts_sharded(lattice.flat, species)
 
 

@@ -1,7 +1,10 @@
 // Species histogram for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel of src/repro/kernels/density.py:
-//   K4 density_kernel  <- density_counts (_kernel)
+// Replaces the Pallas TPU kernel of src/repro/kernels/density.py and its
+// lift over a device mesh:
+//   K4  density_kernel          <- density_counts (_kernel)
+//   K4s density_grouped_kernel  <- density_counts_sharded (K4 per shard,
+//                                  then psum)
 //
 // What it computes. counts[v] = the number of cells of the lattice (n cells
 // of a contiguous run, which may start anywhere) whose label is v, for v in
@@ -28,6 +31,14 @@
 // accumulators into counts, zeroing them, and re-arms the ticket for the
 // next launch on the stream. Integer sums, so the result is exact in any
 // order.
+//
+// K4s counts a lattice split into equal blocks (a ShardedLattice's blocks
+// on one card) in one launch instead of one per block plus a sum: the
+// blocks' pointers travel by value in the launch's parameters (RunTable, up
+// to kMaxGroup), blockIdx.y picks the block, each slice of the grid sweeps
+// its block as K4 sweeps a lattice, and all slices add into the one scratch
+// and take the one ticket, so the launch's last block writes the lattice's
+// counts. Both kernels share count_run.
 #include "tile_staging.cuh"
 
 namespace escg {
@@ -37,6 +48,7 @@ constexpr int kWarps = kThreads / kWarp;
 constexpr int kBlocksPerSm = 4;
 constexpr int kUnroll = 4;  // 16-byte loads in flight per lane
 constexpr int kMaxDevices = 64;
+constexpr int kMaxGroup = 32;  // runs in one K4s launch
 
 // One lane's counts of labels 0..NB-1 (NB > 0), or the block's shared bins
 // of labels 0..n_labels-1 (NB == 0).
@@ -98,12 +110,15 @@ __device__ __forceinline__ void block_add(const uint32_t (&c)[NB],
   }
 }
 
-// scratch[0] is the ticket and scratch[1 .. 1 + n_labels) the accumulators,
-// all zero between launches.
+// Count the n labels of the run g as block `part` of the `parts` blocks
+// that sweep it, add the block's sums into the accumulators, and let the
+// launch's last block (of all its blocks, over every run) move them into
+// counts. scratch[0] is the ticket and scratch[1 .. 1 + n_labels) the
+// accumulators, all zero between launches.
 template <typename T, int NB>
-__global__ void __launch_bounds__(kThreads)
-    density_kernel(const T* g, int64_t n, int n_labels, int* counts,
-                   int* scratch) {
+__device__ __forceinline__ void count_run(const T* g, int64_t n, int part,
+                                          int parts, int n_labels,
+                                          int* counts, int* scratch) {
   extern __shared__ int bins[];  // NB == 0: n_labels bins
   __shared__ int sums[kWarps * (NB > 0 ? NB : 1)];
   __shared__ bool last;
@@ -119,8 +134,8 @@ __global__ void __launch_bounds__(kThreads)
   head = head < n ? head : n;
   const int64_t n_vec = (n - head) / kVec;
   const int64_t tail = head + n_vec * kVec;
-  const int64_t i0 = (int64_t)blockIdx.x * kThreads + tid;
-  const int64_t stride = (int64_t)gridDim.x * kThreads;
+  const int64_t i0 = (int64_t)part * kThreads + tid;
+  const int64_t stride = (int64_t)parts * kThreads;
   if (i0 < head) cnt.cell((int)g[i0]);
   if (i0 < n - tail) cnt.cell((int)g[tail + i0]);
   // kUnroll loads in flight, the last round's past n_vec left out
@@ -146,7 +161,8 @@ __global__ void __launch_bounds__(kThreads)
   __threadfence();
   __syncthreads();
   if (tid == 0)
-    last = atomicAdd((unsigned*)scratch, 1u) == gridDim.x - 1u;
+    last = atomicAdd((unsigned*)scratch, 1u) ==
+           gridDim.x * gridDim.y - 1u;
   __syncthreads();
   if (!last) return;
   // the last block: every block's sums are in, move them out
@@ -154,6 +170,28 @@ __global__ void __launch_bounds__(kThreads)
   for (int b = tid; b < n_labels; b += kThreads)
     counts[b] = atomicExch(&acc[b], 0);
   if (tid == 0) scratch[0] = 0;
+}
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+    density_kernel(const T* g, int64_t n, int n_labels, int* counts,
+                   int* scratch) {
+  count_run<T, NB>(g, n, blockIdx.x, gridDim.x, n_labels, counts, scratch);
+}
+
+// K4s: the runs of a group of equal blocks, one slice of the grid
+// (blockIdx.y) per run, passed by value so that a launch copies nothing
+// to the card first.
+struct RunTable {
+  const void* run[kMaxGroup];
+};
+
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+    density_grouped_kernel(RunTable t, int64_t n, int n_labels,
+                           int* counts, int* scratch) {
+  count_run<T, NB>((const T*)t.run[blockIdx.y], n, blockIdx.x, gridDim.x,
+                   n_labels, counts, scratch);
 }
 
 // The card's SM count, asked once per device.
@@ -167,31 +205,67 @@ inline int sm_count(int device) {
   return cache[device];
 }
 
+// One launch over n_runs runs of n labels each, the runs of t:
+// density_kernel for K4's own launch (one run), density_grouped_kernel for
+// K4s. Each run gets as many blocks as it has rounds of kUnroll loads, and
+// all runs together at most max_blocks.
 template <typename T, int NB>
-int launch(const void* g, int64_t n, int n_labels, int* counts,
-           int* scratch, int max_blocks, cudaStream_t stream) {
-  // as many blocks as there are rounds of kUnroll loads, at most max_blocks
+int launch(const RunTable& t, int n_runs, bool grouped, int64_t n,
+           int n_labels, int* counts, int* scratch, int max_blocks,
+           cudaStream_t stream) {
   const int64_t per_block = (int64_t)kThreads * kUnroll * (16 / sizeof(T));
   const int64_t want = (n + per_block - 1) / per_block;
-  const int blocks =
-      (int)(want < 1 ? 1 : (want < max_blocks ? want : max_blocks));
+  const int cap = max_blocks / n_runs > 1 ? max_blocks / n_runs : 1;
+  const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
   const size_t smem = NB == 0 ? (size_t)n_labels * sizeof(int) : 0;
-  density_kernel<T, NB><<<blocks, kThreads, smem, stream>>>(
-      (const T*)g, n, n_labels, counts, scratch);
+  if (grouped)
+    density_grouped_kernel<T, NB>
+        <<<dim3(blocks, n_runs), kThreads, smem, stream>>>(
+            t, n, n_labels, counts, scratch);
+  else
+    density_kernel<T, NB><<<blocks, kThreads, smem, stream>>>(
+        (const T*)t.run[0], n, n_labels, counts, scratch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const void* g, int64_t n, int n_labels, int* counts,
-             int* scratch, int sms, cudaStream_t stream) {
+int dispatch(const RunTable& t, int n_runs, bool grouped, int64_t n,
+             int n_labels, int* counts, int* scratch, int sms,
+             cudaStream_t stream) {
   const int most = sms * kBlocksPerSm;
   if (n_labels <= 4)
-    return launch<T, 4>(g, n, n_labels, counts, scratch, most, stream);
+    return launch<T, 4>(t, n_runs, grouped, n, n_labels, counts, scratch,
+                        most, stream);
   if (n_labels <= 8)
-    return launch<T, 8>(g, n, n_labels, counts, scratch, most, stream);
+    return launch<T, 8>(t, n_runs, grouped, n, n_labels, counts, scratch,
+                        most, stream);
   if (n_labels <= 16)
-    return launch<T, 16>(g, n, n_labels, counts, scratch, most, stream);
-  return launch<T, 0>(g, n, n_labels, counts, scratch, most, stream);
+    return launch<T, 16>(t, n_runs, grouped, n, n_labels, counts, scratch,
+                         most, stream);
+  return launch<T, 0>(t, n_runs, grouped, n, n_labels, counts, scratch, most,
+                      stream);
+}
+
+int count(int cell_bytes, const RunTable& t, int n_runs, bool grouped,
+          int64_t n, int n_labels, int* counts, int* scratch, int device,
+          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = sm_count(device);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cell_bytes) {
+    case 1:
+      return dispatch<int8_t>(t, n_runs, grouped, n, n_labels, counts,
+                              scratch, sms, s);
+    case 2:
+      return dispatch<int16_t>(t, n_runs, grouped, n, n_labels, counts,
+                               scratch, sms, s);
+    case 4:
+      return dispatch<int32_t>(t, n_runs, grouped, n, n_labels, counts,
+                               scratch, sms, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace escg
@@ -204,23 +278,24 @@ extern "C" {
 // launched).
 int density_counts(int cell_bytes, const void* grid, int64_t n, int n_labels,
                    int* counts, int* scratch, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int sms = escg::sm_count(device);
-  if (sms < 1) return (int)cudaErrorInvalidDevice;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cell_bytes) {
-    case 1:
-      return escg::dispatch<int8_t>(grid, n, n_labels, counts, scratch, sms,
-                                    s);
-    case 2:
-      return escg::dispatch<int16_t>(grid, n, n_labels, counts, scratch, sms,
-                                     s);
-    case 4:
-      return escg::dispatch<int32_t>(grid, n, n_labels, counts, scratch, sms,
-                                     s);
-  }
-  return (int)cudaErrorInvalidValue;
+  escg::RunTable t{};
+  t.run[0] = grid;
+  return escg::count(cell_bytes, t, 1, false, n, n_labels, counts, scratch,
+                     device, stream);
+}
+
+// K4s: the counts of n_runs (1 .. kMaxGroup) runs of n labels each, in one
+// launch; runs is a host array of their pointers on the card, copied into
+// the launch's parameters. scratch as for density_counts.
+int density_counts_grouped(int cell_bytes, const void* const* runs,
+                           int n_runs, int64_t n, int n_labels, int* counts,
+                           int* scratch, int device, void* stream) {
+  if (n_runs < 1 || n_runs > escg::kMaxGroup)
+    return (int)cudaErrorInvalidValue;
+  escg::RunTable t{};
+  for (int r = 0; r < n_runs; ++r) t.run[r] = runs[r];
+  return escg::count(cell_bytes, t, n_runs, true, n, n_labels, counts,
+                     scratch, device, stream);
 }
 
 const char* escg_error_string(int err) {

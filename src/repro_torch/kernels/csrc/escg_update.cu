@@ -69,31 +69,6 @@ struct Stream {
   int k;
 };
 
-__device__ __forceinline__ void cp_async16(uint32_t* dst,
-                                           const uint32_t* src) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(uint32_t* dst,
-                                          const uint32_t* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                   (unsigned)__cvta_generic_to_shared(dst)),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Wait until this lane's copies but those of the latest group have landed.
-__device__ __forceinline__ void cp_async_wait_all_but_one() {
-  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
-
 // Start copying proposals [j0, j0 + n) of the group's `tiles` tiles (from
 // tile `first` on) into the chunk buffer `buf`: word j - j0 of field f of
 // tile t lands at buf[(f * P + t) * (C + kPad) + j - j0]. kQ lanes copy one

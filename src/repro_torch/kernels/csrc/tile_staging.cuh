@@ -1,5 +1,6 @@
-// Building blocks of the sublattice kernels for Hopper (sm_90a), shared by
-// escg_update_fused.cu (K1, K2), escg_update.cu (K3) and density.cu (K4).
+// Building blocks of the kernels for Hopper (sm_90a), shared by
+// escg_update_fused.cu (K1, K2), escg_update.cu (K3), density.cu (K4) and
+// reference_scan.cu (S1).
 //
 // A one-warp block stages up to 32 tiles of the lattice in shared memory,
 // one per lane (Geometry, Staging, group_tile): lane t's cells sit in bank
@@ -8,7 +9,9 @@
 // store_group writes them back coalesced. pair_rule is the update of one
 // pair of cells (src/repro/core/rules.py), Divisor the exact division by a
 // divisor fixed for the launch, and Staging's splat and equal count equal
-// labels packed in a 32-bit word.
+// labels packed in a 32-bit word. The cp_async helpers copy from device to
+// shared memory without holding registers (K3's proposal chunks, S1's
+// proposal windows).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -218,6 +221,38 @@ __device__ __forceinline__ int2 pair_rule(int s, int n, float ua, float ud,
   new_s = s == n ? s : new_s;
   new_n = s == n ? n : new_n;
   return make_int2(new_s, new_n);
+}
+
+// Asynchronous copies from device to shared memory (cp.async): 16 or 4
+// bytes a lane, committed as a group; a lane waits for its own groups.
+__device__ __forceinline__ void cp_async16(uint32_t* dst,
+                                           const uint32_t* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(uint32_t* dst,
+                                          const uint32_t* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until this lane's copies but those of the latest group have landed.
+__device__ __forceinline__ void cp_async_wait_all_but_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+// Wait until all of this lane's copies have landed.
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void load_dirs(const int* dirs, int* sdirs) {

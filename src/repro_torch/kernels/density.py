@@ -8,29 +8,35 @@ sums added into a scratch buffer that the last block moves into the
 output; integer sums, so exact. Its plain version is the reference's
 one-hot sum.
 
-``density_counts_sharded`` is the count of a lattice split into blocks
-over a device mesh (the reference lifts K4 into a ``shard_map`` and
-``psum``s the partials): K4 on every block, on the block's device, and
-the (S+1,) int32 partials summed on the mesh's first device. It adds no
-kernel of its own. Its plain twin is ``density_counts_plain`` of the
-gathered lattice.
+K4s, ``density_counts_sharded``: the count of a lattice split into
+blocks over a device mesh (the reference lifts K4 into a ``shard_map``
+and ``psum``s the partials). The blocks are grouped by device in mesh
+order, and each device counts its blocks in one launch of
+``density_grouped_kernel`` (``csrc/density.cu``: the blocks' pointers
+passed by value, one slice of the grid per block, one scratch and one
+ticket for all), up to ``MAX_GROUP`` blocks a launch; more blocks on a
+device make more launches, whose counts are summed there. Only a mesh
+over several devices copies its partials to the first device and sums
+them in int32. Its plain twin is ``density_counts_plain`` of the gathered
+lattice.
 
-The wrapper launches the kernel for a CUDA grid and takes the plain
-version only for a CPU grid. ``LAUNCHES`` counts kernel launches.
+The wrappers launch the kernels for CUDA tensors and take the plain
+versions only for CPU tensors. ``LAUNCHES`` counts kernel launches.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Sequence, Tuple
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
 from . import build
 
-LAUNCHES = {"density_counts": 0}
+LAUNCHES = {"density_counts": 0, "density_counts_sharded": 0}
 
 _LIB = "density"
 MAX_LABELS = 4096      # the bins live in a block's shared memory
+MAX_GROUP = 32         # blocks in one K4s launch (kMaxGroup of the source)
 
 # (device, stream) -> that stream's scratch: the ticket and the
 # MAX_LABELS accumulators, zero between launches (each launch's last block
@@ -45,6 +51,10 @@ def _lib() -> ctypes.CDLL:
         i32, ptr = ctypes.c_int, ctypes.c_void_p
         fn.argtypes = [i32, ptr, ctypes.c_int64, i32, ptr, ptr, i32, ptr]
         fn.restype = i32
+        grouped = lib.density_counts_grouped
+        grouped.argtypes = [i32, ptr, i32, ctypes.c_int64, i32, ptr, ptr,
+                            i32, ptr]
+        grouped.restype = i32
     return lib
 
 
@@ -66,10 +76,7 @@ def density_counts_plain(grid: torch.Tensor, species: int) -> torch.Tensor:
     return (grid.reshape(-1, 1) == labels).sum(dim=0, dtype=torch.int32)
 
 
-def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
-    """Counts per label 0..S of a contiguous int8/int16/int32 lattice
-    (any shape; a view that starts inside its storage is fine), (S+1,)
-    int32 on the grid's device."""
+def _check_grid(grid: torch.Tensor, species: int) -> None:
     if grid.dtype not in build.CELL_DTYPES:
         raise ValueError(f"grid dtype must be int8/int16/int32, got "
                          f"{grid.dtype}")
@@ -78,6 +85,13 @@ def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     if not 0 <= species < MAX_LABELS:
         raise ValueError(f"species must be in [0, {MAX_LABELS}), got "
                          f"{species}")
+
+
+def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
+    """Counts per label 0..S of a contiguous int8/int16/int32 lattice
+    (any shape; a view that starts inside its storage is fine), (S+1,)
+    int32 on the grid's device."""
+    _check_grid(grid, species)
     if grid.device.type == "cpu":
         return density_counts_plain(grid, species)
     device, stream = build.launch_args(grid)
@@ -92,20 +106,59 @@ def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     return out
 
 
+def _grouped_counts(blocks: Sequence[torch.Tensor],
+                    species: int) -> torch.Tensor:
+    """(S+1,) int32 counts of up to ``MAX_GROUP`` equal blocks on one
+    device: one K4s launch on a card; on the CPU each block's count (K4's
+    plain version), summed."""
+    first = blocks[0]
+    if first.device.type == "cpu":
+        return torch.stack([density_counts(b, species)
+                            for b in blocks]).sum(dim=0, dtype=torch.int32)
+    device, stream = build.launch_args(first)
+    scratch = _scratch(first, device, stream)
+    out = torch.empty(species + 1, dtype=torch.int32, device=first.device)
+    runs = (ctypes.c_void_p * len(blocks))(
+        *(build.ptr(b).value for b in blocks))
+    lib = _lib()
+    err = lib.density_counts_grouped(
+        first.element_size(), runs, len(blocks), first.numel(), species + 1,
+        build.ptr(out), build.ptr(scratch), device, stream)
+    build.check(lib, err, "density_counts_sharded launch")
+    LAUNCHES["density_counts_sharded"] += 1
+    return out
+
+
 def density_counts_sharded(blocks: Sequence[torch.Tensor],
                            species: int) -> torch.Tensor:
     """Counts per label 0..S of a lattice decomposed into ``blocks`` (the
-    mesh's blocks in raster order, each contiguous on its own device):
-    K4 on every block, then the partials copied to the first block's
-    device and summed there in int32, (S+1,) int32. Integer sums do not
-    depend on their order, so this equals K4 of the gathered lattice.
+    mesh's blocks in raster order, equal in size and type, each
+    contiguous on its own device), (S+1,) int32 on the first block's
+    device. Integer sums do not depend on their order, so this equals K4
+    of the gathered lattice.
 
-    Blocks on one card run in order on its current stream, so they share
-    that stream's scratch. A copy between two cards waits for the
-    partial on its card's stream (PyTorch orders a copy between devices
-    on both devices' current streams)."""
+    The blocks of a device are counted in groups of up to ``MAX_GROUP``,
+    one K4s launch each on the device's current stream (sharing that
+    stream's scratch with K4); a device with more groups sums their
+    counts there. A copy of a partial between two cards waits for it on
+    its card's stream (PyTorch orders a copy between devices on both
+    devices' current streams)."""
     if not blocks:
         raise ValueError("density_counts_sharded takes at least one block")
+    for b in blocks:
+        _check_grid(b, species)
+        if b.dtype != blocks[0].dtype or b.numel() != blocks[0].numel():
+            raise ValueError(f"the blocks must be equal in size and type, "
+                             f"got {tuple(b.shape)} {b.dtype} beside "
+                             f"{tuple(blocks[0].shape)} {blocks[0].dtype}")
+    by_device: Dict[torch.device, List[torch.Tensor]] = {}
+    for b in blocks:
+        by_device.setdefault(b.device, []).append(b)
+    parts = [_grouped_counts(bs[g:g + MAX_GROUP], species)
+             for bs in by_device.values()
+             for g in range(0, len(bs), MAX_GROUP)]
+    if len(parts) == 1:
+        return parts[0]
     dest = blocks[0].device
-    parts = [density_counts(b, species).to(dest) for b in blocks]
-    return torch.stack(parts).sum(dim=0, dtype=torch.int32)
+    return torch.stack([p.to(dest) for p in parts]).sum(dim=0,
+                                                        dtype=torch.int32)

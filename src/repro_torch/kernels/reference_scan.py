@@ -4,11 +4,14 @@ The reference runs ``reference.run_proposals`` as a ``lax.scan`` that XLA
 compiles into a device loop; it has no Pallas kernel. As PyTorch tensor
 operations the scan would cost several launches per proposal, so the card
 runs it as ``reference_scan_kernel`` in ``csrc/reference_scan.cu``: one
-thread applies the (B,) proposal stream in order to the flat lattice in
-device memory, with the pair rule of ``csrc/tile_staging.cuh``. Its plain
-version is a host loop over Python integers, with the float32 rounding of
-the reference's rule (thresholds rounded to float32, ``p1 + p2`` summed in
-float32).
+block walks the (B,) proposal stream in windows of 1,024 steps (256 on a
+lattice of fewer than 65,536 cells), gathers each window's cells into a
+shared-memory table, applies in parallel the steps that are the first of
+the window to touch both their cells and the rest in order through the
+table, and writes the cells back, with the pair rule of
+``csrc/tile_staging.cuh``. Its plain version is a host loop over Python
+integers, with the float32 rounding of the reference's rule (thresholds
+rounded to float32, ``p1 + p2`` summed in float32).
 
 The wrapper launches the kernel for a CUDA grid and takes the plain
 version only for a CPU grid. ``LAUNCHES`` counts kernel launches.

@@ -13,23 +13,26 @@ main path of ``chip_smoke.py``) and reports:
 * for the default ``batched`` engine, the device time of one MCS's
   proposal draws (``rng.proposal_batch`` for each of its sub-batches) and
   of its arbitration windows (``batched.run_proposals``), by CUDA events;
+* for the sequential ``reference`` engine, the device time of one MCS's
+  proposal draws (one ``rng.proposal_batch`` of N) and of its scan (one
+  S1 launch), by CUDA events;
 * for each window, the wall time per MCS of a ``simulate`` window, one
   chunk of 100 MCS (10 on ``batched``) after a warm-up run, and from a
   ``torch.profiler`` trace of the same window the device time per MCS by
-  kernel, K4's among them, and the device's idle share, 1 - busy / wall.
+  kernel, K4's (or K4s's) and S1's among them, and the device's idle
+  share, 1 - busy / wall.
 
 ``pallas_fused`` runs windows at ``k_mcs`` 1 and 10 with observables off;
 ``pallas`` and ``batched`` run one window with park3's declared
 observables (``densities``, ``interface_length``), the path users call.
 ``batched`` launches some 9,000 small kernels per MCS, so its window is
-10 MCS. ``sharded`` runs one window of 50 MCS with ``--local-kernel`` (K,
+10 MCS; ``reference`` runs one window of 5 MCS with observables off.
+``sharded`` runs one window of 50 MCS with ``--local-kernel`` (K,
 default ``fused``, observables off; ``pallas`` with park3's declared
 observables) on a (2, 2) mesh of four ``cuda:0`` entries, the whole
 decomposition on one card. (The plain
-``sublattice`` engine launches some 7,700 per MCS and is not offered;
-nor is ``reference``, whose one MCS at 3200 x 3200 is 10.24 M
-sequential steps: ``chip_smoke.py`` times it with events.) It prints one
-JSON object, also written to ``--out``. It needs a card.
+``sublattice`` engine launches some 7,700 per MCS and is not offered.)
+It prints one JSON object, also written to ``--out``. It needs a card.
 """
 from __future__ import annotations
 
@@ -40,7 +43,7 @@ import time
 
 import torch
 
-from .core import batched, engines, lattice, rng, threefry
+from .core import batched, engines, lattice, reference, rng, threefry
 from .core.scenarios import (EngineConfig, RunConfig, compose,
                              make_scenario)
 from .core.simulation import simulate
@@ -48,7 +51,8 @@ from .core.simulation import simulate
 SIDE, TILE = 3200, (8, 32)
 SHARD_GRID = (2, 2)         # the sharded engine's mesh, all on cuda:0
 # MCS in a profiled window, by engine
-WINDOW = {"pallas_fused": 100, "pallas": 100, "batched": 10, "sharded": 50}
+WINDOW = {"pallas_fused": 100, "pallas": 100, "batched": 10, "sharded": 50,
+          "reference": 5}
 
 
 def _device_us(evt) -> float:
@@ -94,7 +98,10 @@ def _window(engine: str, k_mcs: int, observables, device=None,
             "device_busy_ms_per_mcs": busy,
             "idle_share": 1.0 - busy / traced_ms,
             "k4_ms_per_mcs": sum(ms for name, ms in by_kernel.items()
-                                 if "density_kernel" in name),
+                                 if "density_kernel" in name
+                                 or "density_grouped_kernel" in name),
+            "s1_ms_per_mcs": sum(ms for name, ms in by_kernel.items()
+                                 if "reference_scan_kernel" in name),
             "device_ms_per_mcs_by_kernel": dict(
                 sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
 
@@ -155,6 +162,28 @@ def _batched_parts_ms() -> dict:
             "arbitration_ms_per_mcs": _event_ms(arbitrate, 5)}
 
 
+def _reference_parts_ms() -> dict:
+    """Device ms of one MCS's parts on ``reference`` at 3200 x 3200, by
+    CUDA events over 3 MCS after a warm-up: the draws of its N proposals,
+    and S1 applying them."""
+    park3 = make_scenario("park3")
+    p = compose(park3, EngineConfig(engine="reference"),
+                RunConfig(length=SIDE, height=SIDE))
+    n = p.n_cells
+    t_eps, t_eps_mu = p.action_thresholds()
+    dom = torch.as_tensor(park3.dominance()).cuda()
+    grid = lattice.init_grid(threefry.PRNGKey(1), SIDE, SIDE, p.species,
+                             device="cuda")
+    key = threefry.PRNGKey(0)
+
+    def draws():
+        return rng.proposal_batch(key, n, n, p.neighbourhood, device="cuda")
+    props = draws()
+    return {"proposal_batch_ms_per_mcs": _event_ms(draws, 3),
+            "s1_ms_per_mcs": _event_ms(lambda: reference.run_proposals(
+                grid, props, t_eps, t_eps_mu, dom, p.flux), 3)}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="pallas_fused",
@@ -194,6 +223,9 @@ def main(argv=None) -> int:
         report["windows"] = [_window(
             args.engine, 1, () if args.local_kernel == "fused" else None,
             ["cuda:0"] * n_blocks, **shard)]
+    elif args.engine == "reference":
+        report.update(_reference_parts_ms())
+        report["windows"] = [_window(args.engine, 1, ())]
     else:
         report.update(_batched_parts_ms())
         report["windows"] = [_window(args.engine, 1, None)]

@@ -329,6 +329,58 @@ def test_reference_scan_dropping_equals_batched_window(cuda):
     assert int(k_bat) == int(k_seq) < 256 * 256 // 8
 
 
+# S1's windows are 1,024 steps, 256 below 65,536 cells: streams shorter
+# than one window, one step either side of a whole window, several windows
+# and a ragged last one
+SCAN_LENGTHS = (1, 255, 256, 257, 1023, 1024, 1025, 4097)
+
+
+@pytest.mark.parametrize("n_props", SCAN_LENGTHS)
+@pytest.mark.parametrize("side", [12, 64, 256])
+def test_reference_scan_windows_equal_plain(cuda, side, n_props):
+    """S1 against the host loop over whole and ragged windows, on a 12 x 12
+    lattice (nearly every step shares a cell with an earlier one), 64 x 64
+    and 256 x 256: every lattice type, both neighbourhoods, both boundaries
+    (self-pairs at clamped edges) and ``drop_conflicts``; lattice and
+    applied count."""
+    dom, dirs = _tables(5, cuda)
+    for dtype, nbhd in ((torch.int32, 4), (torch.int8, 8), (torch.int16, 4),
+                        (torch.int32, 8), (torch.int8, 4), (torch.int16, 8)):
+        grid = lattice.init_grid(threefry.PRNGKey(side), side, side, 5, 0.1,
+                                 dtype=dtype, device=cuda)
+        props = rng.proposal_batch(threefry.PRNGKey(n_props + nbhd),
+                                   n_props, side * side, nbhd, device=cuda)
+        for flux in (True, False):
+            for drop in (False, True):
+                got_g, got_k = reference_scan.reference_scan(
+                    grid, *props, dom, dirs, 0.25, 0.6, flux, drop)
+                want_g, want_k = reference_scan.reference_scan_plain(
+                    grid, *props, dom, 0.25, 0.6, flux, drop)
+                torch.cuda.synchronize()
+                case = (dtype, nbhd, flux, drop)
+                assert got_g.dtype == dtype, case
+                assert torch.equal(got_g, want_g), case
+                assert int(got_k) == int(want_k), case
+
+
+def test_reference_scan_many_windows_equal_plain(cuda):
+    """S1 over 65 windows at 256 x 256, without and with
+    ``drop_conflicts``."""
+    grid = lattice.init_grid(threefry.PRNGKey(4), 256, 256, 3, 0.1,
+                             device=cuda)
+    dom, dirs = _tables(3, cuda)
+    props = rng.proposal_batch(threefry.PRNGKey(5), 256 * 256 + 7,
+                               256 * 256, 4, device=cuda)
+    for drop in (False, True):
+        got_g, got_k = reference_scan.reference_scan(grid, *props, dom, dirs,
+                                                     0.25, 0.6, True, drop)
+        want_g, want_k = reference_scan.reference_scan_plain(
+            grid, *props, dom, 0.25, 0.6, True, drop)
+        torch.cuda.synchronize()
+        assert torch.equal(got_g, want_g)
+        assert int(got_k) == int(want_k)
+
+
 def test_reference_golden_and_batched_on_the_card(cuda):
     """The reference golden through ``simulate`` on the card (S1 once per
     MCS), and ``batched`` on the card equal to the CPU."""
@@ -369,11 +421,40 @@ def test_density_counts_sharded_on_one_card_equals_plain(cuda, species):
                          dtype=torch.int32)
     lat = sharded.place(grid, lattice_mesh((2, 2), 96, 160, 8, 8,
                                            devices=["cuda:0"] * 4))
-    before = density.LAUNCHES["density_counts"]
+    before = dict(density.LAUNCHES)
     got = density.density_counts_sharded(lat.flat, species)
     torch.cuda.synchronize()
-    assert density.LAUNCHES["density_counts"] == before + 4
+    assert density.LAUNCHES["density_counts_sharded"] == \
+        before["density_counts_sharded"] + 1
+    assert density.LAUNCHES["density_counts"] == before["density_counts"]
     assert torch.equal(got, density.density_counts_plain(grid, species))
+
+
+@pytest.mark.parametrize("shard_grid", [(1, 1), (5, 8), (8, 9)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_density_counts_sharded_groups_equal_plain(cuda, dtype, shard_grid):
+    """K4s on meshes of one card with one block, 40 blocks (a full table of
+    ``MAX_GROUP`` and a part) and 72 (three launches), labels outside 0..S
+    too, S on both sides of K4's 16 register bins: one launch per
+    ``MAX_GROUP`` blocks, the plain count of the whole lattice."""
+    rows, cols = shard_grid
+    h, w = 16 * rows, 24 * cols
+    n_blocks = rows * cols
+    launches = -(-n_blocks // density.MAX_GROUP)
+    for species in (3, 15, 16, 40):
+        grid = torch.randint(-2, species + 4, (h, w), device=cuda,
+                             generator=torch.Generator(cuda).manual_seed(
+                                 species), dtype=torch.int32).to(dtype)
+        lat = sharded.place(grid, lattice_mesh(
+            shard_grid, h, w, 8, 8, devices=["cuda:0"] * n_blocks))
+        before = dict(density.LAUNCHES)
+        got = density.density_counts_sharded(lat.flat, species)
+        torch.cuda.synchronize()
+        assert density.LAUNCHES["density_counts_sharded"] == \
+            before["density_counts_sharded"] + launches
+        assert density.LAUNCHES["density_counts"] == before["density_counts"]
+        assert got.dtype == torch.int32
+        assert torch.equal(got, density.density_counts_plain(grid, species))
 
 
 @pytest.mark.parametrize("local_kernel,single,kernel", [
@@ -382,7 +463,7 @@ def test_density_counts_sharded_on_one_card_equals_plain(cuda, species):
 def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
                                                   kernel):
     """A (2, 2) mesh of four ``cuda:0`` entries: one kernel launch per
-    block and MCS, K4 per block for every count, no ``torch.roll``, and
+    block and MCS, one K4s launch for every count, no ``torch.roll``, and
     the single-device engine's lattice and streams."""
     def run(engine, device, **kw):
         return simulate(make_scenario("park3"),
@@ -404,7 +485,8 @@ def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
     finally:
         torch.roll = real_roll
     counted = ops.launches()
-    assert counted[kernel] == 4 * 4 and counted["density_counts"] == 4 * 5
+    assert counted[kernel] == 4 * 4 and counted["density_counts"] == 0
+    assert counted["density_counts_sharded"] == 5
     assert rolls[0] == 0
     want = run(single, cuda)
     np.testing.assert_array_equal(got.grid, want.grid)

@@ -192,6 +192,107 @@ def test_run_proposals_matches_reference(drop, flux, nbhd, dtype):
     assert (int(got_k) < b) == drop
 
 
+def _window_schedule(grid, cell, dirn, u_act, u_dom, dom, t_eps, t_eps_mu,
+                     flux, drop, window):
+    """A numpy model of S1's schedule (``csrc/reference_scan.cu``), window
+    by window of ``window`` steps: the smallest step that names each cell
+    (first occurrences by step); the *first* steps, those that are the
+    smallest for both their cells, applied all at once to the labels
+    gathered at the window's start; without ``drop``, the other steps
+    applied in order through the window's table; with ``drop``, a step
+    kept iff it is first and neither cell was touched before the window;
+    then the table written back, and with ``drop`` every cell of the
+    window marked touched. Returns ``(grid, kept)``."""
+    h, w = grid.shape
+    off = np.asarray(lattice.DIRS)[dirn]
+    r, c = cell // w + off[:, 0], cell % w + off[:, 1]
+    if flux:
+        r, c = r % h, c % w
+    else:
+        r, c = np.clip(r, 0, h - 1), np.clip(c, 0, w - 1)
+    cells, nbrs = cell.tolist(), (r * w + c).tolist()
+    ua, ud = u_act.tolist(), u_dom.tolist()
+    p1 = dom.astype(np.float32)
+    p12 = (p1 + p1.T).tolist()                  # float32 p1 + p2
+    p1 = p1.tolist()
+    te, tem = float(np.float32(t_eps)), float(np.float32(t_eps_mu))
+
+    def rule(s, n, a, d):
+        if s == n:
+            return s, n
+        if a < te:
+            return n, s
+        if a < tem:
+            if d < p1[s][n]:
+                return s, 0
+            return (0, n) if d < p12[s][n] else (s, n)
+        if n == 0:
+            return s, s
+        return (n, n) if s == 0 else (s, n)
+
+    g = grid.reshape(-1).tolist()
+    touched = [False] * (h * w)
+    kept = 0
+    for b0 in range(0, len(cells), window):
+        steps = range(b0, min(b0 + window, len(cells)))
+        first = {}
+        for b in steps:
+            first.setdefault(cells[b], b)
+            first.setdefault(nbrs[b], b)
+        gathered = {x: g[x] for x in first}
+        label = dict(gathered)
+        is_first = {b: first[cells[b]] == b == first[nbrs[b]] for b in steps}
+        applied = [b for b in steps if is_first[b] and not (
+            drop and (touched[cells[b]] or touched[nbrs[b]]))]
+        outs = [rule(gathered[cells[b]], gathered[nbrs[b]], ua[b], ud[b])
+                for b in applied]
+        for b, (s, n) in zip(applied, outs):
+            label[cells[b]] = s
+            label[nbrs[b]] = n
+        kept += len(applied)
+        if not drop:
+            for b in steps:
+                if not is_first[b]:
+                    i, j = cells[b], nbrs[b]
+                    label[i], label[j] = rule(label[i], label[j], ua[b],
+                                              ud[b])
+                    kept += 1
+        for x, v in label.items():
+            g[x] = v
+            touched[x] = touched[x] or drop
+    return np.asarray(g, grid.dtype).reshape(h, w), kept
+
+
+@pytest.mark.parametrize("side", [12, 64])
+@pytest.mark.parametrize("length", ["1", "W-1", "W", "W+1", "4097"])
+@pytest.mark.parametrize("window", [1, 7, 32, 256, 1024])
+def test_window_schedule_equals_host_loop(window, length, side):
+    """S1's window schedule, modelled in numpy, equals the host loop
+    (``reference_scan_plain``) bit for bit, lattice and kept count: on
+    12 x 12 (the reference golden's size, where nearly every step shares a
+    cell with an earlier one of its window) and 64 x 64, every lattice
+    type, both neighbourhoods, both boundaries (self-pairs at clamped
+    edges) and ``drop_conflicts``."""
+    b = {"1": 1, "W-1": window - 1, "W": window, "W+1": window + 1,
+         "4097": 4097}[length]
+    dom = _dom_probabilistic(4, window)
+    for nbhd, dtype in itertools.product((4, 8), ("int8", "int16", "int32")):
+        grid, props = _inputs(window + b + nbhd, side, side, 4, b, nbhd,
+                              dom)
+        grid = grid.astype(dtype)
+        for flux, drop in itertools.product((True, False), (False, True)):
+            want_g, want_k = reference_scan.reference_scan_plain(
+                torch.from_numpy(grid), *map(torch.from_numpy, props),
+                torch.from_numpy(dom), 0.2, 0.6, flux, drop)
+            got_g, got_k = _window_schedule(grid, *props, dom, 0.2, 0.6,
+                                            flux, drop, window)
+            case = (nbhd, dtype, flux, drop)
+            assert got_g.dtype == grid.dtype, case
+            np.testing.assert_array_equal(got_g, want_g.numpy(),
+                                          err_msg=str(case))
+            assert got_k == int(want_k), case
+
+
 def test_scan_wrapper_rejects_what_the_kernel_does_not_take():
     grid = torch.zeros((4, 4), dtype=torch.int32)
     props = [torch.zeros(3, dtype=dt) for dt in

@@ -196,6 +196,16 @@ def test_density_counts_sharded_needs_a_block():
         density.density_counts_sharded([], 3)
 
 
+def test_density_counts_sharded_rejects_unequal_blocks():
+    """K4s counts a device's blocks in one launch of one length and type,
+    as a mesh's blocks are: other blocks are refused on every device."""
+    a = torch.zeros((4, 8), dtype=torch.int32)
+    with pytest.raises(ValueError, match="equal in size and type"):
+        density.density_counts_sharded([a, a[:2].contiguous()], 3)
+    with pytest.raises(ValueError, match="equal in size and type"):
+        density.density_counts_sharded([a, a.to(torch.int8)], 3)
+
+
 # ------------------------- the engine: validation ------------------------ #
 
 def test_engine_caps_match_reference():
