@@ -37,6 +37,17 @@ each with the launch counts set to 0 just before it and read just after:
   to ``pallas``; and ``'jnp'`` at 256 x 256 held to ``'pallas'``.
   ``density_counts_sharded`` (K4s: one grouped launch over the card's
   blocks) is held to the plain count of the whole lattice.
+* IID trials through ``trials.run_trials``, one launch per kernel and MCS
+  for every trial: park3 at 3200 x 3200 on ``pallas_fused`` (16 trials
+  beside 1, ``k_mcs`` 1 and 10: K1 or K2 and K4 over the trials), every
+  trial held to ``simulate`` from its lattice and run key; park3 at 3200 x
+  3200 on ``pallas`` (8 trials with park3's observables: K3 and K4 over the
+  trials), held to 8 single runs; Park's eight species
+  (``probabilistic``), 64 trials at 100 x 100 on the default ``batched``
+  engine, its device launches per MCS counted at 8 and 64 trials and its
+  first trials held to the CPU; ``tests/golden/trial_result.json`` on
+  ``sublattice`` and ``pallas``. The trial forms of K1-K4 are held to
+  their plain versions at the staging edges with 1, 3 and 16 trials.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -121,6 +132,19 @@ ALL_OBS = ("densities", "interface_length", "cluster_size", "snapshot")
 # the plain sweep at 256 x 256 for 3 MCS
 SH_GRID, SH_MCS, SH_CHUNK = (2, 2), 50, 25
 JNP_SIDE, JNP_MCS = 256, 3
+# the trial driver's runs at 3200 x 3200: park3 on pallas_fused for 20 MCS
+# in chunks of 10 (16 trials beside 1) and on pallas for 5 MCS (8 trials)
+TR_FUSED_N, TR_MCS, TR_CHUNK = 16, 20, 10
+TR_PALLAS_N, TR_PALLAS_MCS = 8, 5
+# trials per launch at the staging edges, case by case
+TR_EDGE_NS = (16, 1, 3)
+# Park's eight species, the README's trial example cut from L^2 = 10,000 MCS:
+# 64 trials at 100 x 100 on the default engine, 100 MCS in chunks of 50;
+# its launches per MCS counted over PARK_COUNT_MCS at 8 and at 64 trials;
+# its first PARK_CPU_N trials held to the CPU for PARK_CPU_MCS
+PARK_SIDE, PARK_N, PARK_MCS, PARK_CHUNK = 100, 64, 100, 50
+PARK_COUNT_MCS, PARK_CPU_N, PARK_CPU_MCS = 4, 4, 3
+TRIAL_GOLDEN = os.path.join(HERE, "tests", "golden", "trial_result.json")
 
 
 def check(cond, what):
@@ -156,9 +180,11 @@ def event_ms(torch, fn, n):
 
 
 def profiled_ms(torch, fn, n, kernel):
-    """Device ms per call of the kernels whose name holds ``kernel``, from
-    a ``torch.profiler`` trace of ``n`` calls after one warm-up call; None
-    if the trace holds no device time for them."""
+    """Device ms per launch of the kernels whose name holds ``kernel``,
+    from a ``torch.profiler`` trace of ``n`` calls (one launch each) after
+    one warm-up call: their summed device time over the launches the trace
+    holds, as text; "not measured" and the reason if the trace holds no
+    device time for them or another number of launches than ``n``."""
     fn()
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -167,13 +193,28 @@ def profiled_ms(torch, fn, n, kernel):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
+    us, count = 0.0, 0
     for evt in prof.key_averages():
         if (evt.device_type == torch.autograd.DeviceType.CUDA
                 and kernel in evt.key):
             us += float(getattr(evt, "self_device_time_total", 0.0)
                         or getattr(evt, "self_cuda_time_total", 0.0))
-    return us / n / 1e3 if us > 0 else None
+            count += evt.count
+    if us <= 0:
+        return "not measured (the profiler saw no device time)"
+    if count != n:
+        return f"not measured (the trace holds {count} of the {n} launches)"
+    return f"{us / count / 1e3:.4f} ms"
+
+
+def once_ms(torch, fn):
+    """ms of one call of ``fn``, synchronised (for the slow plain
+    versions)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
 
 
 def max_err(torch, a, b):
@@ -249,7 +290,7 @@ def main():
     sys.path.insert(0, os.path.join(HERE, "src"))
     import numpy as np
     from repro_torch.core import batched, dominance, engines, lattice, rng
-    from repro_torch.core import sharded, threefry
+    from repro_torch.core import sharded, threefry, trials
     from repro_torch.core import observables as obs
     from repro_torch.core.scenarios import (EngineConfig, RunConfig,
                                             compose, make_scenario)
@@ -727,7 +768,7 @@ def main():
     k3_bound, k3_by = bound(2 * cell_bytes + 4 * 4 * updates,
                             updates * OPS_PER_STREAM_UPDATE)
     k4_ms = event_ms(torch, lambda: density.density_counts(g_main, 3), 100)
-    k4_device_ms = profiled_ms(torch, lambda: density.density_counts(
+    k4_device = profiled_ms(torch, lambda: density.density_counts(
         g_main, 3), 100, "density_kernel")
     k4_plain = event_ms(torch, lambda: density.density_counts_plain(
         g_main, 3), 10)
@@ -741,8 +782,6 @@ def main():
         K5_WORDS, (1, 2), device=dev), 3)
     k5_bound, k5_by = bound(4 * K5_WORDS,
                             K5_WORDS // 4 * OPS_PER_COUNTER)
-    k4_device = ("not measured (the profiler saw no device time)"
-                 if k4_device_ms is None else f"{k4_device_ms:.4f} ms")
     for name, ms, plain, bnd, by, lib_note in (
             ("K3", k3_ms, k3_plain, k3_bound, k3_by,
              f"none computes a sequential tile sweep; with the fused shift "
@@ -975,8 +1014,9 @@ def main():
           f"whole lattice ({k4s_err})")
     k4s_ms = event_ms(torch, lambda: density.density_counts_sharded(
         lat_main.flat, 3), 100)
-    k4s_device_ms = profiled_ms(torch, lambda: density.density_counts_sharded(
-        lat_main.flat, 3), 100, "density_grouped_kernel")
+    k4s_device = profiled_ms(
+        torch, lambda: density.density_counts_sharded(lat_main.flat, 3), 100,
+        "density_grouped_kernel")
     k4s_plain = event_ms(torch, lambda: density.density_counts_plain(
         lat_main.gather(), 3), 10)
     k4s_lib = event_ms(torch, lambda: torch.stack(
@@ -986,8 +1026,6 @@ def main():
     k4s_before = event_ms(torch, lambda: torch.stack(
         [density.density_counts(b, 3) for b in lat_main.flat]).sum(
             dim=0, dtype=torch.int32), 100)
-    k4s_device = ("not measured (the profiler saw no device time)"
-                  if k4s_device_ms is None else f"{k4s_device_ms:.4f} ms")
     print(f"[K4s] density_counts_sharded of park3's {SIDE}x{SIDE} lattice "
           f"on a {SH_GRID} mesh of cuda:0: launches {k4s_launches}, "
           f"max_abs_err {k4s_err} against the plain count and K4 of the "
@@ -1113,7 +1151,444 @@ def main():
           f"and interface_length rows); launches "
           f"{launches['sharded_jnp_small']}")
 
-    # ---- 21. the kernel table ----
+    # ---- 21. [trials/fused] IID trials on pallas_fused ----
+    def trial_grids(n_tr, side, species, dtype, seed):
+        return torch.stack([grid_on_card(side, species, dtype, seed + t)
+                            for t in range(n_tr)])
+
+    def trial_rows(rows, n_tr):
+        """(n_tr, *rows.shape) int64: each trial's rows rotated by its
+        index, so that no two trials share a schedule."""
+        return torch.stack([rows.roll(t, 0) for t in range(n_tr)])
+
+    tr_k1_err = tr_k2_err = 0.0
+    for i, (dtype, nbhd, tile, k_edge, _, _, steps, e_shifts) in enumerate(
+            edges):
+        n_tr = TR_EDGE_NS[i % 3]
+        g = trial_grids(n_tr, EDGE_SIDE, 5, dtype, 20)
+        words_e = torch.tensor([[(0, 2 ** 32 - 1), (2 ** 32 - 1, 5),
+                                 (11, 12)][t % 3] for t in range(steps)],
+                               dtype=torch.int64, device=dev)
+        shifts_e = torch.tensor(e_shifts, dtype=torch.int64, device=dev)
+        seeds_t = trial_rows(words_e, n_tr)
+        shifts_t = trial_rows(shifts_e, n_tr)
+        a = fused.escg_tile_round_fused_trials(
+            g, seeds_t[:, 0].contiguous(), shifts_t[:, 0].contiguous(), dom5,
+            dirs, tile, k_edge, 0.25, 0.6, nbhd)
+        b = fused.escg_tile_round_fused_trials_plain(
+            g, seeds_t[:, 0], shifts_t[:, 0], dom5, tile, k_edge, 0.25, 0.6,
+            nbhd)
+        ga, ca = fused.escg_tile_rounds_fused_trials(
+            g, seeds_t, shifts_t, dom5, dirs, tile, k_edge, 0.25, 0.6, 5,
+            nbhd)
+        gb, cb = fused.escg_tile_rounds_fused_trials_plain(
+            g, seeds_t, shifts_t, dom5, tile, k_edge, 0.25, 0.6, 5, nbhd)
+        torch.cuda.synchronize()
+        tr_k1_err = max(tr_k1_err, max_err(torch, a, b))
+        tr_k2_err = max(tr_k2_err, max_err(torch, ga, gb),
+                        max_err(torch, ca, cb))
+    print(f"[trials/fused] K1 and K2 over {TR_EDGE_NS} trials at the "
+          f"{len(edges)} edge cases of K1 and K2 ({EDGE_SIDE}x{EDGE_SIDE}, "
+          f"int8, int16, int32; nbhd 4, 8; tiles {EDGE_TILES}; K2 with 1, 3 "
+          f"and 10 steps; each trial its own seeds and shifts, with 0, 1, "
+          f"H-1, W-1; partial blocks of tiles): max_abs_err K1 {tr_k1_err}, "
+          f"K2 {tr_k2_err} (grids and counts) against the plain versions")
+    tr_k4_err = 0.0
+    for dtype, species, n_tr, hw in itertools.product(
+            (torch.int8, torch.int32), K4_SPECIES, TR_EDGE_NS,
+            ((7, 9), (64, 64), (33, 31))):
+        g = torch.randint(-2, species + 4, (n_tr,) + hw, device=dev,
+                          generator=torch.Generator(dev).manual_seed(species),
+                          dtype=torch.int32).to(dtype)
+        a = density.density_counts_trials(g, species)
+        b = density.density_counts_trials_plain(g, species)
+        torch.cuda.synchronize()
+        tr_k4_err = max(tr_k4_err, max_err(torch, a, b))
+    print(f"[trials/fused] K4 per trial over {TR_EDGE_NS} trials of 7x9, "
+          f"64x64 and 33x31 (slices that start anywhere), int8 and int32, S "
+          f"in {K4_SPECIES}, labels -2..S+3: max_abs_err {tr_k4_err}")
+    check(tr_k1_err == 0.0 and tr_k2_err == 0.0 and tr_k4_err == 0.0,
+          f"the trial forms disagree with their plain versions: K1 "
+          f"{tr_k1_err}, K2 {tr_k2_err}, K4 {tr_k4_err}")
+
+    def fused_trials(n_tr, k_mcs, hooks=()):
+        return trials.run_trials(
+            park3, n_trials=n_tr,
+            engine=EngineConfig(engine="pallas_fused", tile=TILE,
+                                k_mcs=k_mcs),
+            run=RunConfig(length=SIDE, height=SIDE, mcs=TR_MCS,
+                          chunk_mcs=TR_CHUNK, observables=()),
+            stop_on_stasis=False, hooks=hooks)
+
+    tr_runs = {}
+    for k_mcs in (1, K_MCS):
+        for n_tr in (1, TR_FUSED_N):
+            ops.reset_launches()
+            t0 = time.perf_counter()
+            r = fused_trials(n_tr, k_mcs)
+            wall = time.perf_counter() - t0
+            launches[f"trials_fused_{k_mcs}_{n_tr}"] = counted = \
+                ops.launches()
+            tr_runs[k_mcs, n_tr] = r
+            check(r.densities.shape == (n_tr, 4) and r.mcs_completed == TR_MCS
+                  and np.isfinite(r.densities).all()
+                  and np.abs(r.densities.sum(axis=1) - 1.0).max() < 1e-12
+                  and r.kept_fraction == 1.0 and r.n_devices == 1,
+                  f"the fused trials' result is malformed ({n_tr} trials, "
+                  f"k_mcs={k_mcs})")
+            print(f"[trials/fused] park3 {SIDE}x{SIDE} {n_tr} trials "
+                  f"k_mcs={k_mcs} {TR_MCS} MCS: {wall:.3f}s incl. set-up "
+                  f"(the lattices' draws); launches {counted}; {card}")
+        one, many = (launches[f"trials_fused_{k_mcs}_{n}"]
+                     for n in (1, TR_FUSED_N))
+        check(one == many, f"k_mcs={k_mcs}: launches grew with the trials: "
+              f"{one} for 1, {many} for {TR_FUSED_N}")
+        if k_mcs == 1:
+            check(many["escg_tile_round_fused_trials"] == TR_MCS
+                  and many["density_counts_trials"] == TR_MCS + 1
+                  and many["escg_tile_round_fused"] == 0
+                  and many["density_counts"] == 0,
+                  f"the fused trials did not run one K1 and one K4 launch "
+                  f"per MCS for all trials: {many}")
+        else:
+            check(many["escg_tile_rounds_fused_trials"] == TR_MCS // K_MCS
+                  and many["density_counts_trials"] == 1
+                  and many["escg_tile_round_fused_trials"] == 0,
+                  f"the fused trials at k_mcs={K_MCS} did not run one K2 "
+                  f"launch per {K_MCS} MCS: {many}")
+        check(json.loads(tr_runs[k_mcs, 1].to_json())["densities"][0]
+              == json.loads(tr_runs[k_mcs, TR_FUSED_N].to_json())
+              ["densities"][0], "trial 0 depends on the trial count")
+    check(tr_runs[1, TR_FUSED_N].to_json()
+          == tr_runs[K_MCS, TR_FUSED_N].to_json(),
+          f"the fused trials at k_mcs={K_MCS} differ from k_mcs=1")
+    print(f"[trials/fused] launches per run equal for 1 and {TR_FUSED_N} "
+          f"trials ({TR_MCS} K1 and {TR_MCS + 1} K4 launches, the count of "
+          f"the initial lattices included; {TR_MCS // K_MCS} K2 at k_mcs="
+          f"{K_MCS}); k_mcs={K_MCS} equals k_mcs=1 and trial 0 of "
+          f"{TR_FUSED_N} equals the single trial")
+
+    dom_park3 = park3.dominance()
+    g16 = None
+    for k_mcs in (1, K_MCS):
+        p_tr = compose(park3, EngineConfig(engine="pallas_fused", tile=TILE,
+                                           k_mcs=k_mcs),
+                       RunConfig(length=SIDE, height=SIDE, mcs=TR_MCS,
+                                 chunk_mcs=TR_CHUNK, observables=()))
+        built = engines.build(p_tr, dom_park3, dev)
+        grids0, keys0 = trials.trial_grids_and_keys(
+            p_tr, threefry.PRNGKey(p_tr.seed), TR_FUSED_N, dev)
+        chunk = trials.build_trial_chunk(p_tr, built)
+        g, kk, kept_sum = grids0, keys0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TR_MCS // TR_CHUNK):
+            g, kk, cnt, _, kept, _ = chunk(g, kk, TR_CHUNK)
+            kept_sum = kept_sum + kept
+        cnt_h = cnt.cpu().numpy()
+        batch_ms = (time.perf_counter() - t0) / TR_MCS * 1e3
+        check(np.array_equal(cnt_h / p_tr.n_cells,
+                             tr_runs[k_mcs, TR_FUSED_N].densities),
+              "build_trial_chunk differs from run_trials")
+        stamps = []
+        for t in range(TR_FUSED_N):
+            s1 = simulate(p_tr, dom_park3, grid0=grids0[t], key=keys0[t],
+                          stop_on_stasis=False, device=dev,
+                          hooks=[lambda m, g_, c: stamps.append(
+                              time.perf_counter())] if t == 0 else ())
+            check(np.array_equal(s1.grid, g[t].cpu().numpy())
+                  and np.array_equal(s1.densities[-1],
+                                     cnt_h[t] / p_tr.n_cells)
+                  and s1.kept_fraction == 1.0
+                  and int(kept_sum[t]) == TR_MCS * built.attempts_per_mcs,
+                  f"trial {t} at k_mcs={k_mcs} differs from simulate")
+        single_ms = (stamps[1] - stamps[0]) / TR_CHUNK * 1e3
+        print(f"[trials/fused] park3 {SIDE}x{SIDE} k_mcs={k_mcs}: "
+              f"build_trial_chunk over {TR_FUSED_N} trials {batch_ms:.4f} "
+              f"ms/MCS for the batch (two chunks of {TR_CHUNK}, the host key "
+              f"chain included, no overlap), {batch_ms / TR_FUSED_N:.4f} per "
+              f"trial; simulate of one trial {single_ms:.4f} ms/MCS (its "
+              f"second chunk); {card}")
+        if g16 is None:
+            g16, keys16 = grids0, keys0
+    print(f"[trials/fused] build_trial_chunk on the card: each of the "
+          f"{TR_FUSED_N} trials' final lattice, counts and kept count equal "
+          f"simulate from its lattice and run key, at k_mcs 1 and {K_MCS}")
+
+    # the trial launches against n single launches, on the trials' lattices
+    n16 = TR_FUSED_N
+    seeds16 = keys16.to(dev)
+    shifts16 = torch.tensor([[th - 1, tw - 1]] * n16, dtype=torch.int64,
+                            device=dev)
+    k1t_ms = event_ms(torch, lambda: fused.escg_tile_round_fused_trials(
+        g16, seeds16, shifts16, dom, dirs, TILE, k, te, tem, 4), 10)
+    k1n_ms = event_ms(torch, lambda: [fused.escg_tile_round_fused(
+        g16[t], (1, 2), 0, dom, dirs, TILE, k, te, tem, 4, shift=(th - 1,
+                                                                  tw - 1))
+        for t in range(n16)], 5)
+    k1t_plain = once_ms(
+        torch, lambda: fused.escg_tile_round_fused_trials_plain(
+            g16, seeds16, shifts16, dom, TILE, k, te, tem, 4))
+    seeds16k = trial_rows(seeds, n16)
+    shifts16k = trial_rows(shifts, n16)
+    k2t_ms = event_ms(torch, lambda: fused.escg_tile_rounds_fused_trials(
+        g16, seeds16k, shifts16k, dom, dirs, TILE, k, te, tem, 3, 4), 3)
+    k2n_ms = event_ms(torch, lambda: [fused.escg_tile_rounds_fused(
+        g16[t], seeds, shifts, dom, dirs, TILE, k, te, tem, 3, 4)
+        for t in range(n16)], 2)
+    k2t_plain = once_ms(
+        torch, lambda: fused.escg_tile_rounds_fused_trials_plain(
+            g16, seeds16k, shifts16k, dom, TILE, k, te, tem, 3, 4))
+    k4t_ms = event_ms(torch, lambda: density.density_counts_trials(g16, 3),
+                      50)
+    k4t_device = profiled_ms(
+        torch, lambda: density.density_counts_trials(g16, 3), 50,
+        "density_kernel")
+    k4n_ms = event_ms(torch, lambda: [density.density_counts(g16[t], 3)
+                                      for t in range(n16)], 20)
+    k4t_plain = event_ms(torch, lambda: density.density_counts_trials_plain(
+        g16, 3), 5)
+    # the library call: one bincount of every trial's labels offset by
+    # t * (S + 1), which is K4 per trial on lattices of labels 0..S
+    offsets = torch.arange(n16, device=dev)[:, None, None] * 4
+
+    def k4t_library():
+        return torch.bincount((g16.long() + offsets).reshape(-1),
+                              minlength=n16 * 4).view(n16, 4)
+    check(torch.equal(k4t_library().int(),
+                      density.density_counts_trials(g16, 3)),
+          "the offset bincount differs from K4 per trial")
+    k4t_lib = event_ms(torch, k4t_library, 20)
+    print(f"[time] K1 over {n16} trials at {SIDE}x{SIDE}: {k1t_ms:.4f} ms "
+          f"per launch against {k1n_ms:.4f} for {n16} single launches (one "
+          f"{k1_ms:.4f}); plain {k1t_plain:.1f} ms; bound {n16} x "
+          f"{k1_bound * 1e3:.1f} us; cooperative blocks of K2 "
+          f"{fused.cooperative_blocks(g16[0], 3, TILE)}; {card}")
+    print(f"[time] K2 (K={K_MCS}) over {n16} trials: {k2t_ms:.4f} ms per "
+          f"launch against {k2n_ms:.4f} for {n16} single launches (one "
+          f"{k2_ms:.4f}); plain {k2t_plain:.1f} ms; bound {n16} x "
+          f"{k2_bound * 1e3:.1f} us; {card}")
+    print(f"[time] K4 per trial over {n16} trials: {k4t_ms:.4f} ms per "
+          f"launch, device time by the profiler {k4t_device}, against "
+          f"{k4n_ms:.4f} for {n16} single launches (one {k4_ms:.4f}); plain "
+          f"{k4t_plain:.3f} ms; bound {n16} x {k4_bound * 1e3:.1f} us; "
+          f"library call (one torch.bincount of the labels offset by t x "
+          f"(S+1)) {k4t_lib:.4f} ms; {card}")
+
+    # ---- 22. [trials/pallas] IID trials on the stream-fed engine ----
+    tr_k3_err = 0.0
+    k3_trial_edges = k3_edges[::4]
+    for i, (dtype, nbhd, tile, k_edge, shift) in enumerate(k3_trial_edges):
+        n_tr = TR_EDGE_NS[i % 3]
+        g = trial_grids(n_tr, EDGE_SIDE, 5, dtype, 40)
+        n_edge = (EDGE_SIDE // tile[0]) * (EDGE_SIDE // tile[1])
+        props = rng.tile_stream_batch(
+            threefry.split(threefry.PRNGKey(50 + i), n_tr).to(dev),
+            torch.arange(n_edge, device=dev), k_edge,
+            (tile[0] - 2) * (tile[1] - 2), nbhd)
+        shifts_t = trial_rows(torch.tensor(
+            [shift, (0, 0), (1, 1), (EDGE_SIDE - 1, EDGE_SIDE - 1)],
+            dtype=torch.int64, device=dev), n_tr)[:, 0].contiguous()
+        a = escg_update.escg_tile_round_trials(g, *props, dom5, dirs, tile,
+                                               0.25, 0.6, shifts_t)
+        b = escg_update.escg_tile_round_trials_plain(g, *props, dom5, tile,
+                                                     0.25, 0.6, shifts_t)
+        torch.cuda.synchronize()
+        tr_k3_err = max(tr_k3_err, max_err(torch, a, b))
+    print(f"[trials/pallas] K3 over {TR_EDGE_NS} trials at "
+          f"{len(k3_trial_edges)} of K3's edge cases (every fourth: int8, "
+          f"int16, int32; nbhd 4, 8; tiles {EDGE_TILES}; K = th*tw, th*tw - "
+          f"7, less than a chunk; each trial its own streams and shift): "
+          f"max_abs_err {tr_k3_err} against the plain version")
+    check(tr_k3_err == 0.0, f"K3 over trials disagrees ({tr_k3_err})")
+
+    p_pal = compose(park3, EngineConfig(engine="pallas", tile=TILE),
+                    RunConfig(length=SIDE, height=SIDE, mcs=TR_PALLAS_MCS,
+                              chunk_mcs=TR_PALLAS_MCS))
+    p_pal = p_pal.replace(observables=("densities", "interface_length"))
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with counted_rolls(torch, rolls, "trials_pallas"):
+        rp = trials.run_trials(park3, n_trials=TR_PALLAS_N,
+                               engine=EngineConfig(engine="pallas", tile=TILE),
+                               run=RunConfig(length=SIDE, height=SIDE,
+                                             mcs=TR_PALLAS_MCS,
+                                             chunk_mcs=TR_PALLAS_MCS),
+                               stop_on_stasis=False)
+    pallas_trials_s = time.perf_counter() - t0
+    launches["trials_pallas"] = counted = ops.launches()
+    check(counted["escg_tile_round_trials"] == TR_PALLAS_MCS
+          and counted["density_counts_trials"] == TR_PALLAS_MCS + 1
+          and counted["escg_tile_round"] == 0
+          and counted["density_counts"] == 0,
+          f"the pallas trials did not run one K3 and one K4 launch per MCS "
+          f"for all trials: {counted}")
+    check(rolls["trials_pallas"] == 0, f"the pallas trials rolled the "
+          f"lattices outside K3 ({rolls['trials_pallas']} torch.roll calls)")
+    check(sorted(rp.observables) == ["densities", "interface_length"]
+          and rp.observables["interface_length"].shape
+          == (TR_PALLAS_N, TR_PALLAS_MCS, 1), f"the pallas trials streamed "
+          f"{sorted(rp.observables)}")
+    grids_p, keys_p = trials.trial_grids_and_keys(
+        p_pal, threefry.PRNGKey(p_pal.seed), TR_PALLAS_N, dev)
+    chunk, pipe = trials.build_trial_obs_chunk(
+        p_pal, engines.build(p_pal, dom_park3, dev))
+    ring = obs.ring_init(TR_PALLAS_MCS, (TR_PALLAS_N, pipe.width), dev)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    chunk(grids_p, keys_p, ring, 0, TR_PALLAS_MCS)
+    torch.cuda.synchronize()
+    pallas_batch_ms = (time.perf_counter() - t0) / TR_PALLAS_MCS * 1e3
+    t0 = time.perf_counter()
+    for t in range(TR_PALLAS_N):
+        s1 = simulate(p_pal, dom_park3, grid0=grids_p[t], key=keys_p[t],
+                      stop_on_stasis=False, device=dev)
+        check(np.array_equal(rp.densities[t], s1.densities[-1])
+              and np.array_equal(rp.observables["densities"][t],
+                                 s1.densities[1:])
+              and np.array_equal(rp.observables["interface_length"][t],
+                                 s1.observables["interface_length"]),
+              f"pallas trial {t} differs from its single-lattice run")
+    singles_s = time.perf_counter() - t0
+    print(f"[trials/pallas] park3 {SIDE}x{SIDE} {TR_PALLAS_N} trials "
+          f"{TR_PALLAS_MCS} MCS with park3's observables: "
+          f"{pallas_trials_s:.3f}s incl. set-up; one chunk of "
+          f"build_trial_obs_chunk {pallas_batch_ms:.2f} ms/MCS for the "
+          f"batch, {pallas_batch_ms / TR_PALLAS_N:.2f} per trial; "
+          f"{TR_PALLAS_N} single pallas runs {singles_s:.3f}s incl. set-up "
+          f"({singles_s / TR_PALLAS_N / TR_PALLAS_MCS * 1e3:.2f} ms/MCS "
+          f"each); "
+          f"launches {counted}; torch.roll calls {rolls['trials_pallas']}; "
+          f"each trial equals its single-lattice run (final densities, the "
+          f"densities and interface_length streams); {card}")
+    g8t = g16[:TR_PALLAS_N]
+    shifts8 = shifts16[:TR_PALLAS_N]
+    props8t = [rng.tile_stream_batch(keys_p[t].to(dev), tile_ids, k,
+                                     interior, 4)
+               for t in range(TR_PALLAS_N)]
+    props8t = [torch.stack(f) for f in zip(*props8t)]
+    k3t_ms = event_ms(torch, lambda: escg_update.escg_tile_round_trials(
+        g8t, *props8t, dom, dirs, TILE, te, tem, shifts8), 10)
+    k3n_ms = event_ms(torch, lambda: [escg_update.escg_tile_round(
+        g8t[t], *(f[t] for f in props8t), dom, dirs, TILE, te, tem,
+        (th - 1, tw - 1)) for t in range(TR_PALLAS_N)], 5)
+    k3t_plain = once_ms(
+        torch, lambda: escg_update.escg_tile_round_trials_plain(
+            g8t, *props8t, dom, TILE, te, tem, shifts8))
+    del props8t
+    print(f"[time] K3 over {TR_PALLAS_N} trials at {SIDE}x{SIDE}: "
+          f"{k3t_ms:.4f} ms per launch against {k3n_ms:.4f} for "
+          f"{TR_PALLAS_N} single launches (one {k3_ms:.4f}); plain "
+          f"{k3t_plain:.1f} ms; bound {TR_PALLAS_N} x {k3_bound * 1e3:.1f} "
+          f"us; {card}")
+
+    # ---- 23. [trials/park] Park's eight species on the default engine ----
+    prob = make_scenario("probabilistic")
+
+    def park_run(n_tr, mcs, chunk, hooks=(), device=None):
+        return trials.run_trials(
+            prob, n_trials=n_tr,
+            run=RunConfig(length=PARK_SIDE, height=PARK_SIDE, mcs=mcs,
+                          chunk_mcs=chunk),
+            stop_on_stasis=False, hooks=hooks, device=device)
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    rk = park_run(PARK_N, PARK_MCS, PARK_CHUNK)
+    park_wall = time.perf_counter() - t0
+    launches["trials_park"] = counted = ops.launches()
+    check(counted["density_counts_trials"] == PARK_MCS + 1
+          and sum(counted.values()) == PARK_MCS + 1,
+          f"the Park trials ran other kernels than K4 per trial: {counted}")
+    check(rk.densities.shape == (PARK_N, 9) and rk.mcs_completed == PARK_MCS
+          and np.abs(rk.densities.sum(axis=1) - 1.0).max() < 1e-12
+          and 0.0 < rk.kept_fraction < 1.0 and not rk.observables
+          and rk.survivors_hist().shape == (9,)
+          and abs(rk.survivors_hist().sum() - 1.0) < 1e-12,
+          f"the Park trials' result is malformed (kept_fraction "
+          f"{rk.kept_fraction})")
+    print(f"[trials/park] probabilistic (8 species, alpha 0.15, beta 0.75, "
+          f"gamma 1) {PARK_N} trials {PARK_SIDE}x{PARK_SIDE} {PARK_MCS} MCS "
+          f"on batched: {park_wall:.3f}s incl. set-up "
+          f"({park_wall / PARK_MCS * 1e3:.2f} ms/MCS, "
+          f"{park_wall / PARK_MCS / PARK_N * 1e3:.3f} per trial); launches "
+          f"{counted}; kept_fraction {rk.kept_fraction!r}; "
+          f"survival probabilities {rk.survival_probabilities().tolist()}; "
+          f"survivors histogram {rk.survivors_hist().tolist()}; {card}")
+    p_park = compose(prob, EngineConfig(),
+                     RunConfig(length=PARK_SIDE, height=PARK_SIDE))
+    built_park = engines.build(p_park, prob.dominance(), dev)
+    per_mcs = {}
+    for n_tr in (8, PARK_N):
+        grids_k, keys_k = trials.trial_grids_and_keys(
+            p_park, threefry.PRNGKey(0), n_tr, dev)
+        chunk = trials.build_trial_chunk(p_park, built_park)
+        chunk(grids_k, keys_k, 1)                       # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        chunk(grids_k, keys_k, PARK_COUNT_MCS)
+        torch.cuda.synchronize()
+        untraced = (time.perf_counter() - t0) / PARK_COUNT_MCS * 1e3
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            chunk(grids_k, keys_k, PARK_COUNT_MCS)
+            torch.cuda.synchronize()
+            traced = (time.perf_counter() - t0) / PARK_COUNT_MCS * 1e3
+        kernels = busy = 0.0
+        for evt in prof.key_averages():
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                kernels += evt.count
+                busy += float(getattr(evt, "self_device_time_total", 0.0)
+                              or getattr(evt, "self_cuda_time_total", 0.0))
+        per_mcs[n_tr] = (kernels / PARK_COUNT_MCS,
+                         busy / PARK_COUNT_MCS / 1e3, traced, untraced)
+    (c8, b8, w8, u8), (c64, b64, w64, u64) = per_mcs[8], per_mcs[PARK_N]
+    print(f"[trials/park] build_trial_chunk, {PARK_COUNT_MCS} MCS: "
+          f"{u8:.3f} ms/MCS at 8 trials and {u64:.3f} at {PARK_N} "
+          f"({u64 / PARK_N:.4f} per trial); device launches per MCS by the "
+          f"profiler {c8:.1f} and {c64:.1f}; device busy {b8:.3f} and "
+          f"{b64:.3f} ms/MCS of traced walls {w8:.3f} and {w64:.3f} (idle "
+          f"{1 - b8 / w8:.3f} and {1 - b64 / w64:.3f}); {card}")
+    check(c8 > 0 and abs(c64 - c8) <= 0.05 * c8,
+          f"batched's launches per MCS grew with the trials: {c8} at 8, "
+          f"{c64} at {PARK_N}")
+    on_card = park_run(PARK_N, PARK_CPU_MCS, PARK_CPU_MCS)
+    on_host = park_run(PARK_CPU_N, PARK_CPU_MCS, PARK_CPU_MCS, device="cpu")
+    for field_name in ("survival", "densities", "stasis_mcs",
+                       "extinction_mcs"):
+        check(np.array_equal(getattr(on_card, field_name)[:PARK_CPU_N],
+                             getattr(on_host, field_name)),
+              f"the first {PARK_CPU_N} Park trials on the card differ from "
+              f"the CPU in {field_name}")
+    print(f"[trials/park] the first {PARK_CPU_N} of {PARK_N} trials on the "
+          f"card equal {PARK_CPU_N} trials on the CPU for {PARK_CPU_MCS} MCS "
+          f"(survival, densities, stasis and extinction MCS)")
+
+    # ---- 24. [trials/golden] the trial golden on the card ----
+    with open(TRIAL_GOLDEN) as f:
+        want = json.load(f)
+    for engine in ("sublattice", "pallas"):
+        ops.reset_launches()
+        r = trials.run_trials(
+            make_scenario("nspecies5", mobility=1e-3, empty=0.1),
+            dominance.RPSLS(), n_trials=4,
+            engine=EngineConfig(engine=engine, tile=(8, 8)),
+            run=RunConfig(length=16, height=16, seed=7, observables=()),
+            n_mcs=6, chunk_mcs=3, stop_on_stasis=False, device=dev)
+        counted = ops.launches()
+        check(json.loads(r.to_json()) == want,
+              f"the trial golden differs on {engine}")
+        check(counted["density_counts_trials"] == 7
+              and counted["escg_tile_round_trials"]
+              == (6 if engine == "pallas" else 0),
+              f"the trial golden on {engine} launched {counted}")
+    print("[golden] tests/golden/trial_result.json reproduced on the card "
+          "through run_trials on sublattice and on pallas (K3 over the 4 "
+          "trials)")
+
+    # ---- 25. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,
@@ -1157,6 +1632,37 @@ def main():
          "max_abs_err": s1_err, "ms": s1_ms[REF_SIDE],
          "plain_ms": s1_plain[REF_SIDE],
          "bound_ms": s1_bound, "bound_by": s1_by, "library_ms": None},
+        {"name": "escg_tile_round_fused_trials", "route": "cuda",
+         "source": src,
+         "replaces": "src/repro/kernels/escg_update_fused.py:130",
+         "launches": launches[f"trials_fused_1_{TR_FUSED_N}"][
+             "escg_tile_round_fused_trials"],
+         "max_abs_err": tr_k1_err, "ms": k1t_ms, "plain_ms": k1t_plain,
+         "bound_ms": TR_FUSED_N * k1_bound, "bound_by": k1_by,
+         "library_ms": None},
+        {"name": "escg_tile_rounds_fused_trials", "route": "cuda",
+         "source": src,
+         "replaces": "src/repro/kernels/escg_update_fused.py:252",
+         "launches": launches[f"trials_fused_{K_MCS}_{TR_FUSED_N}"][
+             "escg_tile_rounds_fused_trials"],
+         "max_abs_err": tr_k2_err, "ms": k2t_ms, "plain_ms": k2t_plain,
+         "bound_ms": TR_FUSED_N * k2_bound, "bound_by": k2_by,
+         "library_ms": None},
+        {"name": "escg_tile_round_trials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/escg_update.cu",
+         "replaces": "src/repro/kernels/escg_update.py:90",
+         "launches": launches["trials_pallas"]["escg_tile_round_trials"],
+         "max_abs_err": tr_k3_err, "ms": k3t_ms, "plain_ms": k3t_plain,
+         "bound_ms": TR_PALLAS_N * k3_bound, "bound_by": k3_by,
+         "library_ms": None},
+        {"name": "density_counts_trials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/density.cu",
+         "replaces": "src/repro/kernels/density.py:41",
+         "launches": launches[f"trials_fused_1_{TR_FUSED_N}"][
+             "density_counts_trials"],
+         "max_abs_err": tr_k4_err, "ms": k4t_ms, "plain_ms": k4t_plain,
+         "bound_ms": TR_FUSED_N * k4_bound, "bound_by": k4_by,
+         "library_ms": k4t_lib},
     ]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -8,7 +8,8 @@ The reference's state crosses as plain data, so this module needs neither
   text itself), which both packages share field for field;
 * a key as its ``uint32`` key data (``numpy.asarray(jax.random.key_data(k))``
   or a raw ``PRNGKey``);
-* a lattice or a padded dominance matrix as a numpy array.
+* a lattice or a padded dominance matrix as a numpy array;
+* a ``TrialResult`` as its JSON form.
 """
 from __future__ import annotations
 
@@ -21,6 +22,7 @@ from .core.device import DeviceLike, resolve_device
 from .core.params import EscgParams
 from .core.scenarios import EngineConfig, RunConfig, Scenario
 from .core.threefry import MASK
+from .core.trials import TrialResult
 
 _CONFIGS = {cls.__name__: cls
             for cls in (EscgParams, Scenario, EngineConfig, RunConfig)}
@@ -50,6 +52,13 @@ def key_from_jax(key_data) -> torch.Tensor:
         raise ValueError(f"key data must be two integers, got {data!r}")
     return torch.tensor([int(v) & MASK for v in data.tolist()],
                         dtype=torch.int64)
+
+
+def trial_result_from_jax(res) -> TrialResult:
+    """The port's ``TrialResult`` of a reference ``TrialResult`` (or of its
+    JSON text): the same fields, the streamed observables included."""
+    return TrialResult.from_json(res if isinstance(res, str)
+                                 else res.to_json())
 
 
 def key_to_numpy(key: torch.Tensor) -> np.ndarray:

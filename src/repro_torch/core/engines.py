@@ -39,6 +39,24 @@ words and the shift it gives each MCS:
   single-device engines keep the tensor as it is and count it with K4;
   ``sharded`` splits it into blocks over its mesh and counts them with
   ``density_counts_sharded``.
+
+The single-device engines are ``vmappable``: the trial driver
+(``core/trials.py``) runs a batch of IID trials, n lattices stacked as one
+(n, H, W) tensor, with one launch per kernel and MCS for all of them:
+
+* ``schedule_batch(keys (n, 2), n) -> (keys', words (n, n, 2), shifts (n,
+  n, 2))``: the engine's ``schedule`` given a batch of keys, which runs
+  every trial's chain at once with the batched threefry, one set of
+  tensor ops per MCS, equal to ``schedule`` stacked over the trials;
+* ``one_mcs_batch(grids, words (n, 2), shifts (n, 2)) -> (grids, kept
+  (n,))`` with the words and shifts on the grids' device: K1 over the
+  trials (``pallas_fused``), the trials' stream draws then K3 over the
+  trials (``pallas``), the plain sweep vectorised over the trials
+  (``sublattice``), the draws of all trials and one arbitration over the
+  stacked lattices (``batched``), S1 once per trial (``reference``);
+* ``multi_mcs_batch(grids, seeds (n, K, 2), shifts (n, K, 2)) -> (grids,
+  counts (n, K, S+1))``: K2 over the trials (``pallas_fused``);
+* ``counts_batch(grids, species) -> (n, S+1) int32``: K4 per trial.
 """
 from __future__ import annotations
 
@@ -55,8 +73,9 @@ from . import sublattice, threefry
 from .device import Devices, resolve_device, resolve_devices
 from .lattice import DIRS
 from .lattice import counts as _lattice_counts
+from .lattice import trial_counts as _trial_counts
 from .observables import observable_names
-from .rng import proposal_batch, round_shift, tile_stream_batch
+from .rng import ProposalBatch, proposal_batch, round_shift, tile_stream_batch
 
 if TYPE_CHECKING:  # params validates through this module
     from .params import EscgParams
@@ -79,6 +98,19 @@ class BuiltEngine(NamedTuple):
     place: Callable[[torch.Tensor], Any] = _same
     gather: Callable[[Any], torch.Tensor] = _same
     counts: Callable[[Any, int], torch.Tensor] = _lattice_counts
+    # the trial batch of a vmappable engine (module docstring)
+    schedule_batch: Optional[Callable[[torch.Tensor, int],
+                                      Tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]]] = None
+    one_mcs_batch: Optional[Callable[[torch.Tensor, torch.Tensor,
+                                      torch.Tensor],
+                                     Tuple[torch.Tensor,
+                                           torch.Tensor]]] = None
+    multi_mcs_batch: Optional[Callable[[torch.Tensor, torch.Tensor,
+                                        torch.Tensor],
+                                       Tuple[torch.Tensor,
+                                             torch.Tensor]]] = None
+    counts_batch: Callable[[torch.Tensor, int], torch.Tensor] = _trial_counts
 
 
 @dataclass(frozen=True)
@@ -87,6 +119,9 @@ class EngineCaps:
     flux_only: bool = False    # requires periodic (torus) boundaries
     tiled: bool = False        # consumes params.tile; tile must divide grid
     multi_device: bool = False  # domain-decomposed over a device mesh
+    vmappable: bool = True     # runs a batch of trials (trials.run_trials)
+    trial_shardable: bool = True  # its trial batch may be split over
+                               # devices (requires vmappable)
     mesh_axes: Tuple[str, ...] = ()  # the mesh axes the engine owns;
                                # ('rows', 'cols') = grid decomposition
     local_kernels: Tuple[str, ...] = ()  # the values of
@@ -99,6 +134,13 @@ class EngineCaps:
                                # (local_kernel, oracle) overrides: a local
                                # kernel with its own PRNG scheme belongs to
                                # another family ('fused' -> 'pallas_fused')
+
+    @property
+    def pod_composable(self) -> bool:
+        """True when the trial axis rides a ``pod`` mesh axis, the trials
+        sharded over it and each lattice decomposed over ('rows',
+        'cols')."""
+        return "pod" in self.mesh_axes
 
     def oracle_for(self, local_kernel: str = "jnp") -> Optional[str]:
         """The engine this one is bit-identical to when it runs
@@ -122,7 +164,8 @@ _REGISTRY: Dict[str, EngineSpec] = {}
 # engines of the reference that this port does not run yet, with the
 # ROADMAP.md item that ports each
 NOT_PORTED = {
-    "sharded_pod": "Queue 1, item 2 (trials.run_trials)",
+    "sharded_pod": "Queue 1, item 2 (the composed pod x grid mesh, the "
+                   "slice after the trial driver)",
 }
 
 
@@ -238,6 +281,20 @@ def _key_schedule(key: torch.Tensor, n_mcs: int):
         key, n_mcs, lambda k1: (threefry.key_data(k1), 0))
 
 
+# the most proposals a trial batch draws at once: the int64 threefry of a
+# draw holds several temporaries of 8 bytes a proposal, so larger batches
+# draw in groups of trials
+DRAW_GROUP = 1 << 24
+
+
+def _trial_groups(n_trials: int, per_trial: int):
+    """Slices of consecutive trials whose draws of ``per_trial`` proposals
+    each fit in ``DRAW_GROUP`` together (one trial at the least)."""
+    size = max(1, DRAW_GROUP // max(1, per_trial))
+    return [slice(a, min(a + size, n_trials))
+            for a in range(0, n_trials, size)]
+
+
 @register("reference", EngineCaps())
 def _build_reference(p: "EscgParams", dom: torch.Tensor,
                      device: torch.device) -> BuiltEngine:
@@ -253,8 +310,22 @@ def _build_reference(p: "EscgParams", dom: torch.Tensor,
         return reference_mod.run_proposals(grid, batch, t_eps, t_eps_mu,
                                            dom, p.flux)
 
+    def one_mcs_batch(grids, words, shifts):
+        # every trial's draws at once (by groups), then S1 once per trial
+        out, kept = [], []
+        for grp in _trial_groups(grids.shape[0], n):
+            batch = proposal_batch(words[grp], n, n, p.neighbourhood)
+            for t in range(grp.stop - grp.start):
+                one = ProposalBatch(*(f[t] for f in batch))
+                g, k = reference_mod.run_proposals(
+                    grids[grp.start + t], one, t_eps, t_eps_mu, dom, p.flux)
+                out.append(g)
+                kept.append(k)
+        return torch.stack(out), torch.stack(kept)
+
     return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
-                       device=device)
+                       device=device, schedule_batch=_key_schedule,
+                       one_mcs_batch=one_mcs_batch)
 
 
 @register("batched", EngineCaps())
@@ -280,8 +351,26 @@ def _build_batched(p: "EscgParams", dom: torch.Tensor,
             kept.append(k_sub)
         return grid, torch.stack(kept).sum(dtype=torch.int32)
 
+    def one_mcs_batch(grids, words, shifts):
+        # every trial's window keys and draws at once (by groups of
+        # trials), each window arbitrated over the stacked lattices
+        keys = threefry.split_batch(words, n_sub)
+        out, kept = [], []
+        for grp in _trial_groups(grids.shape[0], b_sub):
+            g, k_grp = grids[grp], 0
+            for j in range(n_sub):
+                batch = proposal_batch(keys[grp, j], b_sub, n,
+                                       p.neighbourhood)
+                g, k_sub = batched_mod.run_proposals_trials(
+                    g, batch, t_eps, t_eps_mu, dom, p.flux)
+                k_grp = k_grp + k_sub
+            out.append(g)
+            kept.append(k_grp)
+        return torch.cat(out), torch.cat(kept)
+
     return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
-                       device=device)
+                       device=device, schedule_batch=_key_schedule,
+                       one_mcs_batch=one_mcs_batch)
 
 
 def _tiled_setup(p: "EscgParams"):
@@ -295,7 +384,10 @@ def _tiled_setup(p: "EscgParams"):
 
 def fused_round_inputs(key: torch.Tensor, th: int, tw: int):
     """Per-MCS (Philox seed words, window shift) of the fused-PRNG family:
-    seed = the raw key words, shift keyed by ``fold_in(key, 1)``."""
+    seed = the raw key words, shift keyed by ``fold_in(key, 1)``. Keys (n,
+    2) give the inputs of each, (n, 2) and (n, 2)."""
+    if key.dim() == 2:
+        return key, round_shift(threefry.fold_in_batch(key, 1), th, tw)
     seed = threefry.key_data(key)[-2:]
     shift = round_shift(threefry.fold_in(key, 1), th, tw)
     return seed, shift
@@ -304,12 +396,19 @@ def fused_round_inputs(key: torch.Tensor, th: int, tw: int):
 def _round_schedule(key: torch.Tensor, n_mcs: int, round_inputs):
     """Replay the MCS loop's key chain ``key, k1 = split(key)`` ``n_mcs``
     times with ``round_inputs(k1) -> (words (2,), shift (2,))``; returns
-    ``(key', words (n, 2), shifts (n, 2))``, int64 on the host."""
-    words = torch.zeros((n_mcs, 2), dtype=torch.int64)
-    shifts = torch.zeros((n_mcs, 2), dtype=torch.int64)
+    ``(key', words (n, 2), shifts (n, 2))``, int64 on the host. A batch of
+    keys (n, 2), one per trial, runs every chain at once with the batched
+    threefry (``round_inputs`` then takes and gives (n, 2)) and gives
+    ``(keys', words (n, n_mcs, 2), shifts (n, n_mcs, 2))``."""
+    words = torch.zeros(key.shape[:-1] + (n_mcs, 2), dtype=torch.int64)
+    shifts = torch.zeros_like(words)
     for t in range(n_mcs):
-        key, k1 = threefry.split(key)
-        words[t], shifts[t] = round_inputs(k1)
+        if key.dim() == 2:
+            both = threefry.split_batch(key)
+            key, k1 = both[:, 0], both[:, 1]
+        else:
+            key, k1 = threefry.split(key)
+        words[..., t, :], shifts[..., t, :] = round_inputs(k1)
     return key, words, shifts
 
 
@@ -326,7 +425,11 @@ def multi_round_inputs(key: torch.Tensor, th: int, tw: int, k_steps: int):
 def tiled_round_inputs(key: torch.Tensor, th: int, tw: int):
     """Per-MCS (proposal key data, window shift) of the stream-fed engines:
     ``kp, ks = split(key)``, the tiles' streams keyed by ``kp`` and the
-    shift drawn from ``ks``, as the reference's ``_build_tiled``."""
+    shift drawn from ``ks``, as the reference's ``_build_tiled``. Keys (n,
+    2) give the inputs of each, (n, 2) and (n, 2)."""
+    if key.dim() == 2:
+        both = threefry.split_batch(key)
+        return both[:, 0], round_shift(both[:, 1], th, tw)
     kp, ks = threefry.split(key)
     return threefry.key_data(kp), round_shift(ks, th, tw)
 
@@ -353,18 +456,31 @@ def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
             grid, seed, 0, shift, dom, dirs, p.tile, k_per_tile, t_eps,
             t_eps_mu, p.neighbourhood, roll_back=False), attempts
 
+    def one_mcs_batch(grids, seeds, shifts):
+        return kernel_ops.escg_round_fused_trials(
+            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.neighbourhood), attempts.expand(grids.shape[0])
+
     def multi_mcs(grid, seeds, shifts):
         return kernel_ops.escg_rounds_fused(
             grid, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
             t_eps_mu, p.species, p.neighbourhood)
 
+    def multi_mcs_batch(grids, seeds, shifts):
+        return kernel_ops.escg_rounds_fused_trials(
+            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.species, p.neighbourhood)
+
     return BuiltEngine(schedule, one_mcs,
                        attempts_per_mcs=n_tiles * k_per_tile, device=device,
-                       multi_mcs=multi_mcs)
+                       multi_mcs=multi_mcs, schedule_batch=schedule,
+                       one_mcs_batch=one_mcs_batch,
+                       multi_mcs_batch=multi_mcs_batch)
 
 
 def _build_tiled(p: "EscgParams", device: torch.device,
-                 run_round: Callable) -> BuiltEngine:
+                 run_round: Callable, run_round_batch: Callable
+                 ) -> BuiltEngine:
     """Shared build function of the stream-fed engines (plain and kernel).
 
     Proposals come from per-tile counter-based streams
@@ -372,7 +488,9 @@ def _build_tiled(p: "EscgParams", device: torch.device,
     trajectory is a function of (key, tile id) only. The frame is never
     rolled back: densities and the other observables of a torus are
     translation-invariant, and the reference lets its frame drift the same
-    way."""
+    way. A trial batch draws every trial's streams (by groups of trials
+    whose int64 temporaries stay bounded, into one (n, T, K) buffer) and
+    then runs ``run_round_batch`` once."""
     th, tw, n_tiles, k_per_tile, interior = _tiled_setup(p)
     tile_ids = torch.arange(n_tiles, dtype=torch.int64, device=device)
     attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
@@ -388,8 +506,30 @@ def _build_tiled(p: "EscgParams", device: torch.device,
                                   p.neighbourhood)
         return run_round(grid, props, shift), attempts
 
+    def draw(words):
+        return tile_stream_batch(words, tile_ids, k_per_tile, interior,
+                                 p.neighbourhood)
+
+    def one_mcs_batch(grids, words, shifts):
+        n = grids.shape[0]
+        groups = _trial_groups(n, n_tiles * k_per_tile)
+        if len(groups) == 1:
+            props = draw(words)
+        else:
+            props = ProposalBatch(*(
+                torch.empty((n, n_tiles, k_per_tile), dtype=dt,
+                            device=grids.device)
+                for dt in (torch.int32, torch.int32, torch.float32,
+                           torch.float32)))
+            for grp in groups:
+                for buf, part in zip(props, draw(words[grp])):
+                    buf[grp] = part
+        return run_round_batch(grids, props, shifts), attempts.expand(n)
+
     return BuiltEngine(schedule, one_mcs,
-                       attempts_per_mcs=n_tiles * k_per_tile, device=device)
+                       attempts_per_mcs=n_tiles * k_per_tile, device=device,
+                       schedule_batch=schedule,
+                       one_mcs_batch=one_mcs_batch)
 
 
 @register("sublattice", EngineCaps(flux_only=True, tiled=True))
@@ -403,7 +543,11 @@ def _build_sublattice(p: "EscgParams", dom: torch.Tensor,
         return sublattice.run_round(grid, props, shift, p.tile, t_eps,
                                     t_eps_mu, dom, roll_back=False)
 
-    return _build_tiled(p, device, run_round)
+    def run_round_batch(grids, props, shifts):
+        return sublattice.run_round_trials(grids, props, shifts, p.tile,
+                                           t_eps, t_eps_mu, dom)
+
+    return _build_tiled(p, device, run_round, run_round_batch)
 
 
 @register("pallas", EngineCaps(flux_only=True, tiled=True,
@@ -421,11 +565,16 @@ def _build_pallas(p: "EscgParams", dom: torch.Tensor,
         return kernel_ops.escg_round(grid, props, shift, dom, dirs, p.tile,
                                      t_eps, t_eps_mu, roll_back=False)
 
-    return _build_tiled(p, device, run_round)
+    def run_round_batch(grids, props, shifts):
+        return kernel_ops.escg_round_trials(grids, props, shifts, dom, dirs,
+                                            p.tile, t_eps, t_eps_mu)
+
+    return _build_tiled(p, device, run_round, run_round_batch)
 
 
 @register("sharded", EngineCaps(
-    flux_only=True, tiled=True, multi_device=True, mesh_axes=("rows", "cols"),
+    flux_only=True, tiled=True, multi_device=True, vmappable=False,
+    trial_shardable=False, mesh_axes=("rows", "cols"),
     local_kernels=("jnp", "pallas", "fused"), multi_mcs=True,
     equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),)))
 def _build_sharded(p: "EscgParams", dom: torch.Tensor,

@@ -47,6 +47,14 @@ def counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     return density_counts(grid, species)
 
 
+def trial_counts(grids: torch.Tensor, species: int) -> torch.Tensor:
+    """Population counts per label 0..S of each lattice of an (n, H, W)
+    trial batch, (n, S+1) int32 on its device: kernel K4 per trial on the
+    card (one launch), its plain version on the CPU."""
+    from ..kernels.density import density_counts_trials  # kernels import core
+    return density_counts_trials(grids, species)
+
+
 def neighbor_rc(row: torch.Tensor, col: torch.Tensor,
                 direction: torch.Tensor, height: int, width: int,
                 flux: bool) -> Tuple[torch.Tensor, torch.Tensor]:

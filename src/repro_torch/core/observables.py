@@ -34,7 +34,13 @@ at slot ``pos % capacity``; ``pos`` counts every row ever pushed and is a
 host integer, since the host loop knows it. :func:`ring_flush` unrolls
 ``[start, stop)`` modulo the capacity and drops the oldest rows when more
 were pushed than the ring holds (``simulate`` sizes the ring so that this
-never happens).
+never happens; the trial driver allows it, since its statistics come from
+the counts).
+
+A batch of IID trials is n lattices stacked as one (n, H, W) tensor:
+``compute`` takes it whole (every built-in observable reads the last two
+dims), a row of the batch is (n, width), equal to the trials' rows
+stacked, and the trial driver's ring is ``(capacity, n, width)``.
 """
 from __future__ import annotations
 
@@ -154,17 +160,18 @@ class ObsPipeline:
         return self.row_held(counts, self.grid_values(grid))
 
     def grid_values(self, grid) -> Dict[str, torch.Tensor]:
-        """The grid-derived slices of an (H, W) lattice, or of a lattice
-        decomposed over a mesh (an object with ``views()``, ``gather()``
-        and ``device``, such as ``sharded.ShardedLattice``), on the
-        lattice's (first) device; count-derived specs are left out.
-        Taken at a launch-group boundary, they are what ``k_mcs > 1``
-        holds."""
+        """The grid-derived slices of an (H, W) lattice (each (w,)) or of
+        an (n, H, W) trial batch (each (n, w)), or of a lattice decomposed
+        over a mesh (an object with ``views()``, ``gather()`` and
+        ``device``, such as ``sharded.ShardedLattice``), on the lattice's
+        (first) device; count-derived specs are left out. Taken at a
+        launch-group boundary, they are what ``k_mcs > 1`` holds."""
         p = self._params
         specs = [s for s in self.specs if not s.from_counts]
         if isinstance(grid, torch.Tensor):
-            return {s.name: _f32(s.compute(grid, None, p)).reshape(-1)
-                    for s in specs}
+            lead = tuple(grid.shape[:-2])
+            return {s.name: _f32(s.compute(grid, None, p)).reshape(
+                lead + (-1,)) for s in specs}
         out, views, whole = {}, None, None
         for s in specs:
             if s.block is None:
@@ -181,8 +188,10 @@ class ObsPipeline:
     def row_held(self, counts: torch.Tensor,
                  held: Dict[str, torch.Tensor]) -> torch.Tensor:
         """Rows of megakernel-interior MCS: count-derived slices from
-        ``counts`` (S+1,) or (K, S+1), grid-derived slices from ``held``;
-        (width,) or (K, width)."""
+        ``counts`` (..., S+1), grid-derived slices from ``held``, which
+        broadcast against its leading dims; (..., width). For a trial
+        batch: counts (K, n, S+1) and ``held`` of (n, H, W) grids give
+        (K, n, width)."""
         p = self._params
         lead = counts.shape[:-1]
         parts = []
@@ -288,26 +297,30 @@ def _obs_densities(grid, counts, p):
 
 
 def _bonds(cells: torch.Tensor, right: torch.Tensor, down: torch.Tensor):
-    """The right and down bonds of a block as (cell, neighbour) pairs of
-    views, the inner bonds and then those to the neighbours' first column
+    """The right and down bonds of a block (or of each lattice of a
+    batch, over the last two dims) as (cell, neighbour) pairs of views,
+    the inner bonds and then those to the neighbours' first column
     (``right``) and first row (``down``): no copy of the cells. For a
     whole lattice the neighbours are its own first column and row, the
     torus's wrap-around bonds."""
-    return ((cells[:, :-1], cells[:, 1:]), (cells[:, -1:], right),
-            (cells[:-1], cells[1:]), (cells[-1:], down))
+    return ((cells[..., :, :-1], cells[..., :, 1:]),
+            (cells[..., :, -1:], right),
+            (cells[..., :-1, :], cells[..., 1:, :]),
+            (cells[..., -1:, :], down))
 
 
 def _unlike(cells, right, down):
-    return sum((a != b).sum() for a, b in _bonds(cells, right, down))
+    return sum((a != b).sum(dim=(-2, -1))
+               for a, b in _bonds(cells, right, down))
 
 
 def _like(cells, right, down):
-    return sum(((a == b) & (a > 0)).sum()
+    return sum(((a == b) & (a > 0)).sum(dim=(-2, -1))
                for a, b in _bonds(cells, right, down))
 
 
 def _bond_total(total, p):
-    return _f32(total).reshape(1)
+    return _f32(total).reshape(total.shape + (1,))
 
 
 @register_observable(
@@ -318,7 +331,7 @@ def _bond_total(total, p):
     block=lambda v, p: _unlike(v.cells, v.right, v.down),
     finish=_bond_total)
 def _obs_interface_length(grid, counts, p):
-    return _bond_total(_unlike(grid, grid[:, :1], grid[:1]), p)
+    return _bond_total(_unlike(grid, grid[..., :, :1], grid[..., :1, :]), p)
 
 
 @register_observable(
@@ -329,7 +342,7 @@ def _obs_interface_length(grid, counts, p):
     block=lambda v, p: _like(v.cells, v.right, v.down),
     finish=_bond_total)
 def _obs_cluster_size(grid, counts, p):
-    return _bond_total(_like(grid, grid[:, :1], grid[:1]), p)
+    return _bond_total(_like(grid, grid[..., :, :1], grid[..., :1, :]), p)
 
 
 def _snap_shape(p) -> Tuple[int, int]:
@@ -368,7 +381,7 @@ def _snap_block(v: BlockView, p) -> torch.Tensor:
 
 def _snap_finish(hist: torch.Tensor, p) -> torch.Tensor:
     # torch.argmax returns the first maximum, as jnp.argmax does
-    return _f32(torch.argmax(hist, dim=-1)).reshape(-1)
+    return _f32(torch.argmax(hist, dim=-1)).flatten(-2)
 
 
 @register_observable(
@@ -380,7 +393,8 @@ def _snap_finish(hist: torch.Tensor, p) -> torch.Tensor:
 def _obs_snapshot(grid, counts, p):
     gh, gw = _snap_shape(p)
     bh, bw = p.height // gh, p.length // gw
-    blocks = (grid[: gh * bh, : gw * bw].reshape(gh, bh, gw, bw)
-              .permute(0, 2, 1, 3).reshape(gh, gw, bh * bw))
+    lead = tuple(grid.shape[:-2])
+    blocks = (grid[..., : gh * bh, : gw * bw].reshape(lead + (gh, bh, gw, bw))
+              .transpose(-3, -2).reshape(lead + (gh, gw, bh * bw)))
     labels = torch.arange(p.species + 1, device=grid.device)
-    return _snap_finish((blocks[..., None] == labels).sum(dim=2), p)
+    return _snap_finish((blocks[..., None] == labels).sum(dim=-2), p)

@@ -5,13 +5,17 @@
 * :class:`EngineConfig` — engine selection and layout;
 * :class:`RunConfig` — lattice extent, MCS budget, chunking, seed.
 
-``compose`` assembles the three into ``EscgParams``. The JSON forms are
-the reference's, field for field. The presets ported so far are
-``park3`` and the parametric ``nspecies`` family.
+``compose`` assembles the three into ``EscgParams`` and ``decompose``
+splits one back; ``scenario_key`` hashes a scenario's physics. The JSON
+forms are the reference's, field for field. The presets ported so far are
+``park3``, the parametric ``nspecies`` family and the trial studies'
+``zhong_density``, ``probabilistic`` (Park's eight species) and
+``asym_rps``.
 """
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import inspect
 import json
 import re
@@ -28,7 +32,8 @@ from .params import EscgParams
 __all__ = [
     "Scenario", "ScenarioCaps", "ScenarioSpec", "EngineConfig", "RunConfig",
     "register_scenario", "scenario_names", "make_scenario",
-    "compose", "resolve_config", "scenario_observables",
+    "compose", "decompose", "resolve_config", "scenario_key",
+    "scenario_observables",
 ]
 
 BOUNDARIES = ("flux", "reflect")   # periodic torus | reflecting walls
@@ -61,6 +66,15 @@ class Scenario:
     @property
     def flux(self) -> bool:
         return self.boundary == "flux"
+
+    def extra(self, key: str, default: Optional[float] = None) -> float:
+        """A preset's extra knob (Park's alpha, asym_rps's r12, ...)."""
+        for k, v in self.extras:
+            if k == key:
+                return v
+        if default is None:
+            raise KeyError(f"scenario {self.name!r} has no extra {key!r}")
+        return float(default)
 
     def validate(self) -> "Scenario":
         if self.boundary not in BOUNDARIES:
@@ -277,6 +291,40 @@ def compose(scenario: Scenario, engine: Optional[EngineConfig] = None,
         obs_capacity=run.obs_capacity).validate()
 
 
+def decompose(params: EscgParams, name: str = ""
+              ) -> Tuple[Scenario, EngineConfig, RunConfig]:
+    """Split a flat ``EscgParams`` into the three layers:
+    ``compose(*decompose(p)) == p`` for every valid ``p``."""
+    sc = Scenario(
+        name=name, species=params.species,
+        neighbourhood=params.neighbourhood, mobility=params.mobility,
+        mu=params.mu, sigma=params.sigma, epsilon=params.epsilon,
+        boundary="flux" if params.flux else "reflect", empty=params.empty)
+    eng = EngineConfig(
+        engine=params.engine, cell_dtype=params.cell_dtype,
+        tile=params.tile, shard_grid=params.shard_grid,
+        mesh_shape=params.mesh_shape, local_kernel=params.local_kernel,
+        k_mcs=params.k_mcs)
+    run = RunConfig(
+        length=params.length, height=params.height, mcs=params.mcs,
+        chunk_mcs=params.chunk_mcs, seed=params.seed,
+        print_frequency=params.print_frequency,
+        num_randoms=params.num_randoms, max_step=params.max_step,
+        save=params.save, resume=params.resume, out_dir=params.out_dir,
+        observables=tuple(params.observables),
+        obs_capacity=params.obs_capacity)
+    return sc, eng, run
+
+
+def scenario_key(scenario: Scenario) -> str:
+    """Stable content hash of a scenario's physics: SHA-256 of the
+    canonical JSON of its fields (sorted keys, the extras sorted), the
+    reference's, so both packages give a scenario the same key."""
+    payload = json.dumps(dataclasses.asdict(scenario), sort_keys=True,
+                         separators=(",", ":"))
+    return hashlib.sha256(payload.encode("utf-8")).hexdigest()[:16]
+
+
 def resolve_config(params: Union[EscgParams, Scenario],
                    dom: Optional[np.ndarray] = None,
                    engine_config: Optional[EngineConfig] = None,
@@ -340,3 +388,53 @@ def _build_nspecies(S: int = 5) -> Scenario:
     if S < 1:
         raise ValueError("nspecies family needs S >= 1")
     return Scenario(name=f"nspecies{S}", species=S, mobility=3e-5)
+
+
+@register_scenario("zhong_density", ScenarioCaps(
+    species=5, observables=("extinction_mcs", "densities")),
+    dominance=lambda sc: dom_mod.zhong_ablated_rpsls())
+def _build_zhong_density() -> Scenario:
+    """Zhong et al. (2022) ablated RPSLS (paper §3.1.2, Figs 3.2/3.3): the
+    Rock-crushes-Scissors edge removed; Paper goes extinct in 200-600
+    MCS."""
+    return Scenario(name="zhong_density", species=5, mobility=1e-4)
+
+
+def _park_alliance_dom(sc: Scenario) -> np.ndarray:
+    return dom_mod.park_alliance_network(
+        sc.extra("alpha"), sc.extra("beta"), sc.extra("gamma"))
+
+
+@register_scenario("probabilistic", ScenarioCaps(
+    species=8, observables=("survival", "survivors_hist", "extinction_mcs")),
+    dominance=_park_alliance_dom)
+def _build_probabilistic(alpha: float = 0.15, beta: float = 0.75,
+                         gamma: float = 1.0,
+                         mobility: float = 0.0) -> Scenario:
+    """Park, Chen & Szolnoki (2023) eight-species alliances (paper §4.3.2,
+    Figs 4.9-4.13, Table 4.2): probabilistic (alpha, beta, gamma) rates and
+    no migration; mobility > 0 is the companion paper's extension (epsilon
+    then reverts to 2 * M * N)."""
+    return Scenario(name="probabilistic", species=8, mobility=mobility,
+                    epsilon=None if mobility > 0 else 0.0,
+                    extras=_freeze_extras(
+                        {"alpha": alpha, "beta": beta, "gamma": gamma}))
+
+
+def _asym_dom(sc: Scenario) -> np.ndarray:
+    r12, r23, r31 = (sc.extra("r12"), sc.extra("r23"), sc.extra("r31"))
+    return dom_mod.from_dense(np.array([[0.0, r12, 0.0],
+                                        [0.0, 0.0, r23],
+                                        [r31, 0.0, 0.0]], dtype=np.float32))
+
+
+@register_scenario("asym_rps", ScenarioCaps(
+    species=3, observables=("densities", "survival")),
+    dominance=_asym_dom)
+def _build_asym_rps(r12: float = 1.0, r23: float = 0.7,
+                    r31: float = 0.4) -> Scenario:
+    """Asymmetric-dominance RPS (paper §3.1.1's rate generalization): the
+    three cyclic edges carry unequal kill rates."""
+    return Scenario(name="asym_rps", species=3, mobility=3e-5,
+                    extras=_freeze_extras(
+                        {"r12": r12, "r23": r23, "r31": r31}))

@@ -16,6 +16,7 @@ ring of rows that the host copies once per chunk.
 from __future__ import annotations
 
 import json
+import warnings
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Sequence
 
@@ -29,6 +30,34 @@ from .device import Devices
 from .params import EscgParams
 from .results import decode_observables, encode_observables
 from .scenarios import resolve_config
+
+_SCENARIO_FIRST_MSG = (
+    "the flat-facade call form ({fn}(params, dom, ...)) is deprecated; "
+    "pass a Scenario first — {fn}(scenario, engine=EngineConfig(...), "
+    "run=RunConfig(...)) — and let the registry resolve the dominance "
+    "network")
+
+
+def _resolve_call_form(fn_name, params, engine_config, run_config,
+                       engine, run):
+    """The scenario-first signature of ``trials.run_trials``: ``engine=``
+    and ``run=`` are the preferred spellings of ``engine_config=`` and
+    ``run_config=`` (both at once raise), and a flat ``EscgParams`` in the
+    scenario slot warns with a ``DeprecationWarning``."""
+    if engine is not None:
+        if engine_config is not None:
+            raise TypeError(f"{fn_name}: pass engine= or engine_config=, "
+                            "not both")
+        engine_config = engine
+    if run is not None:
+        if run_config is not None:
+            raise TypeError(f"{fn_name}: pass run= or run_config=, "
+                            "not both")
+        run_config = run
+    if isinstance(params, EscgParams):
+        warnings.warn(_SCENARIO_FIRST_MSG.format(fn=fn_name),
+                      DeprecationWarning, stacklevel=3)
+    return engine_config, run_config
 
 
 @dataclass
@@ -265,3 +294,16 @@ def simulate(params, dom: Optional[np.ndarray] = None,
                      mcs_completed=mcs_done, stasis_mcs=stasis_mcs,
                      kept_fraction=(kept_total / att_total)
                      if att_total else 1.0)
+
+
+def run_trials(params: EscgParams, dom: Optional[np.ndarray], n_trials: int,
+               key: Optional[torch.Tensor] = None,
+               n_mcs: Optional[int] = None,
+               device: Optional[Devices] = None) -> np.ndarray:
+    """The older trial runner's form over ``trials.run_trials``: the final
+    survival mask only, (n_trials, S) bool, without the stasis exit.
+    Prefer ``trials.run_trials``, which returns the whole
+    ``TrialResult``."""
+    from .trials import run_trials as _run_trials  # trials imports this
+    return _run_trials(params, dom, n_trials, key=key, n_mcs=n_mcs,
+                       stop_on_stasis=False, device=device).survival

@@ -74,3 +74,34 @@ def run_round(grid: torch.Tensor, props: ProposalBatch,
     if roll_back:
         g = torch.roll(g, (dy, dx), (0, 1))
     return g
+
+
+def roll_trials(grids: torch.Tensor, shifts: torch.Tensor) -> torch.Tensor:
+    """Each lattice of an (n, H, W) batch rolled by minus its row of
+    ``shifts`` ((n, 2) int64): ``out[t, r, c] = grids[t, (r + dy) % H, (c
+    + dx) % W]``, as ``torch.roll(grids[t], (-dy, -dx), (0, 1))``."""
+    n, h, w = grids.shape
+    dev = grids.device
+    sh = shifts.to(device=dev, dtype=torch.int64)
+    rows = (torch.arange(h, device=dev)[None, :] + sh[:, :1]) % h
+    cols = (torch.arange(w, device=dev)[None, :] + sh[:, 1:]) % w
+    idx = (rows[:, :, None] * w + cols[:, None, :]).reshape(n, -1)
+    return torch.gather(grids.reshape(n, -1), 1, idx).reshape(n, h, w)
+
+
+def run_round_trials(grids: torch.Tensor, props: ProposalBatch,
+                     shifts: torch.Tensor, tile_shape: Tuple[int, int],
+                     t_eps: float, t_eps_mu: float,
+                     dom: torch.Tensor) -> torch.Tensor:
+    """``run_round`` of every trial of an (n, H, W) batch with
+    ``roll_back=False``, vectorised over the trials: each lattice rolled
+    by its own shift, then one sweep of all n * T tiles with the (n, T, K)
+    proposals. Trial t equals ``run_round(grids[t], props[t], shifts[t],
+    ..., roll_back=False)``."""
+    n, h, w = grids.shape
+    th, tw = tile_shape
+    g = roll_trials(grids, shifts)
+    tiles = to_tiles(g.reshape(n * h, w), th, tw)   # trial-major tiles
+    flat = ProposalBatch(*(f.reshape(-1, f.shape[-1]) for f in props))
+    tiles = tile_update(tiles, flat, t_eps, t_eps_mu, dom)
+    return from_tiles(tiles, n * h, w).reshape(n, h, w)

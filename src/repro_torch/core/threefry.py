@@ -223,14 +223,18 @@ def _threefry_batch(keys: torch.Tensor, n: int) -> torch.Tensor:
     return torch.cat([x0, x1], dim=-1)[..., :n]
 
 
-def fold_in_batch(key: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
-    """``vmap(lambda d: fold_in(key, d))(data)``: one key (2,), data a
-    tensor of 32-bit integers; keys (*data.shape, 2) on the key's
-    device."""
-    if key.shape != (2,):
-        raise ValueError(f"a key has shape (2,), got {tuple(key.shape)}")
-    d = data.to(device=key.device, dtype=torch.int64) & MASK
-    x0, x1 = _hash_batch(key[0], key[1], torch.zeros_like(d), d)
+def fold_in_batch(key: torch.Tensor, data) -> torch.Tensor:
+    """``vmap(lambda d: fold_in(key, d))(data)`` for one key (2,) and data
+    a tensor of 32-bit integers, giving keys (*data.shape, 2); or
+    ``vmap(fold_in)`` over a batch of keys (..., 2) against data (a tensor
+    or an integer) that broadcasts with ``key.shape[:-1]``, giving keys
+    (*broadcast shape, 2). On the key's device."""
+    if key.dim() < 1 or key.shape[-1] != 2:
+        raise ValueError(f"keys have shape (..., 2), got "
+                         f"{tuple(key.shape)}")
+    d = torch.as_tensor(data).to(device=key.device, dtype=torch.int64) & MASK
+    x0, x1 = _hash_batch(key[..., 0], key[..., 1], torch.zeros_like(d), d)
+    x0, x1 = torch.broadcast_tensors(x0, x1)
     return torch.stack([x0, x1], dim=-1)
 
 
@@ -254,17 +258,31 @@ def uniform_batch(keys: torch.Tensor, n: int, minval: float = 0.0,
     return _to_unit_float(random_bits_batch(keys, n), minval, maxval)
 
 
-def randint_batch(keys: torch.Tensor, n: int, minval: int,
-                  maxval: int) -> torch.Tensor:
-    """``vmap(lambda k: randint(k, (n,), minval, maxval))(keys)`` for
-    integer bounds: (..., n) int32, the same two draws per value and the
-    same span/multiplier fold as ``randint``."""
+def randint_batch(keys: torch.Tensor, n: int, minval,
+                  maxval) -> torch.Tensor:
+    """``vmap(lambda k: randint(k, (n,), minval, maxval))(keys)``: (..., n)
+    int32, the same two draws per value and the same span/multiplier fold
+    as ``randint``. The bounds are integers, or a ``maxval`` that is a
+    sequence of n integers, one bound per value."""
+    sub = split_batch(keys)
+    if not isinstance(maxval, int):
+        # one bound per value (the torus shift's (th, tw)), as randint
+        # takes an array maxval
+        shape = (n,)
+        lo = _as_int32_range(minval, shape, keys.device)
+        hi = _as_int32_range(maxval, shape, keys.device)
+        span = (hi - lo) & MASK
+        span = torch.where(hi <= lo, torch.ones_like(span), span)
+        multiplier = (2 ** 16) % span
+        multiplier = mul32(multiplier, multiplier) % span
+        higher = random_bits_batch(sub[..., 0, :], n)
+        lower = random_bits_batch(sub[..., 1, :], n)
+        return _fold_span(higher, lower, lo, span, multiplier)
     lo = max(-(2 ** 31), min(int(minval), 2 ** 31 - 1))
     hi = max(-(2 ** 31), min(int(maxval), 2 ** 31 - 1))
     span = (hi - lo) & MASK if hi > lo else 1
     multiplier = (2 ** 16) % span
     multiplier = (multiplier * multiplier) % 2 ** 32 % span
-    sub = split_batch(keys)
     higher = random_bits_batch(sub[..., 0, :], n)
     lower = random_bits_batch(sub[..., 1, :], n)
     return _fold_span(higher, lower, lo, span, multiplier)

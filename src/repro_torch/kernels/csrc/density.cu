@@ -2,7 +2,8 @@
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/density.py and its
 // lift over a device mesh:
-//   K4  density_kernel          <- density_counts (_kernel)
+//   K4  density_kernel          <- density_counts (_kernel), also vmapped
+//                                  over a batch of trials
 //   K4s density_grouped_kernel  <- density_counts_sharded (K4 per shard,
 //                                  then psum)
 //
@@ -38,7 +39,11 @@
 // to kMaxGroup), blockIdx.y picks the block, each slice of the grid sweeps
 // its block as K4 sweeps a lattice, and all slices add into the one scratch
 // and take the one ticket, so the launch's last block writes the lattice's
-// counts. Both kernels share count_run.
+// counts. K4 counts a batch of trials' lattices, stacked in one buffer, in
+// one launch (one lattice is a batch of one): blockIdx.y picks the trial,
+// whose slice of the grid sweeps its lattice with its own accumulators and
+// ticket, so the trial's last block writes its row of the counts. The
+// kernels share count_run.
 #include "tile_staging.cuh"
 
 namespace escg {
@@ -111,14 +116,14 @@ __device__ __forceinline__ void block_add(const uint32_t (&c)[NB],
 }
 
 // Count the n labels of the run g as block `part` of the `parts` blocks
-// that sweep it, add the block's sums into the accumulators, and let the
-// launch's last block (of all its blocks, over every run) move them into
-// counts. scratch[0] is the ticket and scratch[1 .. 1 + n_labels) the
-// accumulators, all zero between launches.
+// that sweep it, add the block's sums into the accumulators `acc`, and let
+// the last of the n_blocks blocks that share them (their ticket) move them
+// into counts. The ticket and the accumulators are zero between launches.
 template <typename T, int NB>
 __device__ __forceinline__ void count_run(const T* g, int64_t n, int part,
                                           int parts, int n_labels,
-                                          int* counts, int* scratch) {
+                                          int* counts, int* ticket, int* acc,
+                                          unsigned n_blocks) {
   extern __shared__ int bins[];  // NB == 0: n_labels bins
   __shared__ int sums[kWarps * (NB > 0 ? NB : 1)];
   __shared__ bool last;
@@ -150,7 +155,6 @@ __device__ __forceinline__ void count_run(const T* g, int64_t n, int part,
       if (i + u * stride < n_vec) cnt.vec(x[u]);
   }
 
-  int* acc = scratch + 1;
   if constexpr (NB > 0) {
     block_add<NB>(cnt.c, n_labels, sums, acc);
   } else {
@@ -161,22 +165,14 @@ __device__ __forceinline__ void count_run(const T* g, int64_t n, int part,
   __threadfence();
   __syncthreads();
   if (tid == 0)
-    last = atomicAdd((unsigned*)scratch, 1u) ==
-           gridDim.x * gridDim.y - 1u;
+    last = atomicAdd((unsigned*)ticket, 1u) == n_blocks - 1u;
   __syncthreads();
   if (!last) return;
   // the last block: every block's sums are in, move them out
   __threadfence();
   for (int b = tid; b < n_labels; b += kThreads)
     counts[b] = atomicExch(&acc[b], 0);
-  if (tid == 0) scratch[0] = 0;
-}
-
-template <typename T, int NB>
-__global__ void __launch_bounds__(kThreads)
-    density_kernel(const T* g, int64_t n, int n_labels, int* counts,
-                   int* scratch) {
-  count_run<T, NB>(g, n, blockIdx.x, gridDim.x, n_labels, counts, scratch);
+  if (tid == 0) *ticket = 0;
 }
 
 // K4s: the runs of a group of equal blocks, one slice of the grid
@@ -191,7 +187,23 @@ __global__ void __launch_bounds__(kThreads)
     density_grouped_kernel(RunTable t, int64_t n, int n_labels,
                            int* counts, int* scratch) {
   count_run<T, NB>((const T*)t.run[blockIdx.y], n, blockIdx.x, gridDim.x,
-                   n_labels, counts, scratch);
+                   n_labels, counts, scratch, scratch + 1,
+                   gridDim.x * gridDim.y);
+}
+
+// K4 and K4 per trial: the runs of a batch of trials (one lattice: one
+// run), n labels each, stacked from g on; blockIdx.y is the run r, counted
+// into its own row of counts with its own ticket scratch[r] and
+// accumulators scratch[gridDim.y + r * n_labels ..], so there is no bound
+// on the runs but the grid's.
+template <typename T, int NB>
+__global__ void __launch_bounds__(kThreads)
+    density_kernel(const T* g, int64_t n, int n_labels, int* counts,
+                   int* scratch) {
+  const int r = blockIdx.y;
+  count_run<T, NB>(g + r * n, n, blockIdx.x, gridDim.x, n_labels,
+                   counts + (size_t)r * n_labels, scratch + r,
+                   scratch + gridDim.y + (size_t)r * n_labels, gridDim.x);
 }
 
 // The card's SM count, asked once per device.
@@ -206,9 +218,9 @@ inline int sm_count(int device) {
 }
 
 // One launch over n_runs runs of n labels each, the runs of t:
-// density_kernel for K4's own launch (one run), density_grouped_kernel for
-// K4s. Each run gets as many blocks as it has rounds of kUnroll loads, and
-// all runs together at most max_blocks.
+// density_grouped_kernel for K4s, else density_kernel (the runs stacked
+// from t.run[0] on). Each run gets as many blocks as it has rounds of
+// kUnroll loads, and all runs together at most max_blocks.
 template <typename T, int NB>
 int launch(const RunTable& t, int n_runs, bool grouped, int64_t n,
            int n_labels, int* counts, int* scratch, int max_blocks,
@@ -223,7 +235,7 @@ int launch(const RunTable& t, int n_runs, bool grouped, int64_t n,
         <<<dim3(blocks, n_runs), kThreads, smem, stream>>>(
             t, n, n_labels, counts, scratch);
   else
-    density_kernel<T, NB><<<blocks, kThreads, smem, stream>>>(
+    density_kernel<T, NB><<<dim3(blocks, n_runs), kThreads, smem, stream>>>(
         (const T*)t.run[0], n, n_labels, counts, scratch);
   return (int)cudaGetLastError();
 }
@@ -273,20 +285,27 @@ int count(int cell_bytes, const RunTable& t, int n_runs, bool grouped,
 extern "C" {
 
 // cell_bytes selects the lattice type: 1 = int8, 2 = int16, 4 = int32.
-// scratch holds 1 + n_labels words, all zero before the first launch on a
-// stream; each launch leaves them zero. Returns a cudaError_t (0 =
-// launched).
-int density_counts(int cell_bytes, const void* grid, int64_t n, int n_labels,
-                   int* counts, int* scratch, int device, void* stream) {
+// Every entry point returns a cudaError_t (0 = launched).
+//
+// K4 and K4 per trial: the counts (n_runs, n_labels) of n_runs (1 ..
+// 65535) runs of n labels each, stacked from `grids` on (one lattice:
+// n_runs = 1), in one launch. scratch holds n_runs * (1 + n_labels) words,
+// all zero before the first launch on a stream; each launch leaves them
+// zero.
+int density_counts(int cell_bytes, const void* grids, int n_runs, int64_t n,
+                   int n_labels, int* counts, int* scratch, int device,
+                   void* stream) {
+  if (n_runs < 1 || n_runs > 65535) return (int)cudaErrorInvalidValue;
   escg::RunTable t{};
-  t.run[0] = grid;
-  return escg::count(cell_bytes, t, 1, false, n, n_labels, counts, scratch,
-                     device, stream);
+  t.run[0] = grids;
+  return escg::count(cell_bytes, t, n_runs, false, n, n_labels, counts,
+                     scratch, device, stream);
 }
 
 // K4s: the counts of n_runs (1 .. kMaxGroup) runs of n labels each, in one
 // launch; runs is a host array of their pointers on the card, copied into
-// the launch's parameters. scratch as for density_counts.
+// the launch's parameters; scratch holds 1 + n_labels words, zero as for
+// density_counts.
 int density_counts_grouped(int cell_bytes, const void* const* runs,
                            int n_runs, int64_t n, int n_labels, int* counts,
                            int* scratch, int device, void* stream) {
@@ -294,8 +313,8 @@ int density_counts_grouped(int cell_bytes, const void* const* runs,
     return (int)cudaErrorInvalidValue;
   escg::RunTable t{};
   for (int r = 0; r < n_runs; ++r) t.run[r] = runs[r];
-  return escg::count(cell_bytes, t, n_runs, true, n, n_labels, counts,
-                     scratch, device, stream);
+  return escg::count(cell_bytes, t, n_runs, true, n, n_labels,
+                     counts, scratch, device, stream);
 }
 
 const char* escg_error_string(int err) {

@@ -1,7 +1,8 @@
 // Stream-fed sublattice round for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/escg_update.py:
-//   K3 tile_round_kernel  <- escg_tile_round (_kernel)
+//   K3 tile_round_kernel  <- escg_tile_round (_kernel), over one lattice or a
+//      batch of trials (blockIdx.y the trial, one launch for all)
 //
 // What it computes. The lattice, rolled by -shift (the torus shift of the
 // sublattice scheme), is cut into (th, tw) tiles in raster order. Tile t
@@ -158,14 +159,31 @@ __device__ __forceinline__ void sweep_chunk(uint32_t* words,
 }
 
 // K3: one round, one block per group of P tiles, read from `in` rolled by
-// (-sr, -sc) and written to `out` in the rolled frame. Shared memory holds
-// the two chunk buffers, then the staged tiles.
+// (-sr, -sc) and written to `out` in the rolled frame. Over a batch of
+// trials blockIdx.y is the trial t: its lattice is the t-th H x W slice of
+// `in` and `out`, its proposals the t-th (T, K) slice of each field, and
+// its shift shifts[t] ((n, 2) int64 on the card; null for one lattice,
+// which takes sr and sc). Shared memory holds the two chunk buffers, then
+// the staged tiles.
 template <typename T, typename S, int C, bool VEC>
 __global__ void __launch_bounds__(kWarp)
     tile_round_kernel(const T* in, T* out, Geometry g, Stream st, int sr,
-                      int sc, Rule rule, const float* dom, const int* dirs) {
+                      int sc, const int64_t* shifts, Rule rule,
+                      const float* dom, const int* dirs) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int sdirs[16];
+  const int trial = blockIdx.y;
+  if (shifts != nullptr) {
+    const int64_t dy = shifts[2 * trial], dx = shifts[2 * trial + 1];
+    sr = (int)(((dy % g.H) + g.H) % g.H);
+    sc = (int)(((dx % g.W) + g.W) % g.W);
+  }
+  const size_t cells = (size_t)g.H * g.W;
+  in += trial * cells;
+  out += trial * cells;
+#pragma unroll
+  for (int f = 0; f < kFields; ++f)
+    st.field[f] += (size_t)trial * g.n_tiles * st.k;
   uint32_t* chunks = smem;
   const int chunk_words = Chunk<C>::words(g.P);
   uint32_t* words = smem + kStages * chunk_words;
@@ -205,17 +223,57 @@ __host__ inline size_t block_smem(const Geometry& g) {
 }
 
 template <typename T, typename S, int C, bool VEC>
-int launch(void* out, const void* in, const Geometry& g, const Stream& st,
-           int sr, int sc, const Rule& rule, const float* dom,
-           const int* dirs, cudaStream_t stream) {
+int launch(void* out, const void* in, int n_trials, const Geometry& g,
+           const Stream& st, int sr, int sc, const int64_t* shifts,
+           const Rule& rule, const float* dom, const int* dirs,
+           cudaStream_t stream) {
   const size_t smem = block_smem<C>(g);
   cudaError_t err =
       allow_smem((const void*)tile_round_kernel<T, S, C, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (g.n_tiles + g.P - 1) / g.P;
-  tile_round_kernel<T, S, C, VEC><<<n_groups, kWarp, smem, stream>>>(
-      (const T*)in, (T*)out, g, st, sr, sc, rule, dom, dirs);
+  tile_round_kernel<T, S, C, VEC>
+      <<<dim3(n_groups, n_trials), kWarp, smem, stream>>>(
+          (const T*)in, (T*)out, g, st, sr, sc, shifts, rule, dom, dirs);
   return (int)cudaGetLastError();
+}
+
+// One K3 launch over n_trials lattices; shifts null for one lattice, which
+// takes (shift0, shift1).
+int round_launch(int cell_bytes, int stage_bytes, int tiles_per_block,
+                 void* out, const void* in, int n_trials, int H, int W,
+                 int th, int tw, int k, const int* cell, const int* dirn,
+                 const float* u_act, const float* u_dom, const float* dom,
+                 int n_dom, const int* dirs, float t_eps, float t_eps_mu,
+                 int shift0, int shift1, const int64_t* shifts, int device,
+                 void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_trials < 1 || n_trials > 65535) return (int)cudaErrorInvalidValue;
+  const Geometry g = make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
+  const Stream st{{(const uint32_t*)cell, (const uint32_t*)dirn,
+                   (const uint32_t*)u_act, (const uint32_t*)u_dom},
+                  k};
+  const Rule rule{t_eps, t_eps_mu, 0, n_dom};
+  const int sr = ((shift0 % H) + H) % H;
+  const int sc = ((shift1 % W) + W) % W;
+  // 16-byte copies where every run of 4 proposal words is 16-byte aligned
+  // (a trial's slice starts T * K words on, a multiple of 4 when K is)
+  const bool vec = k % 4 == 0 &&
+                   ((uintptr_t)cell | (uintptr_t)dirn | (uintptr_t)u_act |
+                    (uintptr_t)u_dom) % 16 == 0;
+  cudaStream_t s = (cudaStream_t)stream;
+  constexpr int C = kChunk;
+  if (vec) {
+    ESCG_DISPATCH(cell_bytes, stage_bytes,
+                  (launch<T, S, C, true>(out, in, n_trials, g, st, sr, sc,
+                                         shifts, rule, dom, dirs, s)));
+  } else {
+    ESCG_DISPATCH(cell_bytes, stage_bytes,
+                  (launch<T, S, C, false>(out, in, n_trials, g, st, sr, sc,
+                                          shifts, rule, dom, dirs, s)));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace escg
@@ -232,32 +290,26 @@ int escg_tile_round(int cell_bytes, int stage_bytes, int tiles_per_block,
                     const float* u_act, const float* u_dom, const float* dom,
                     int n_dom, const int* dirs, float t_eps, float t_eps_mu,
                     int shift0, int shift1, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const escg::Geometry g =
-      escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
-  const escg::Stream st{{(const uint32_t*)cell, (const uint32_t*)dirn,
-                         (const uint32_t*)u_act, (const uint32_t*)u_dom},
-                        k};
-  const escg::Rule rule{t_eps, t_eps_mu, 0, n_dom};
-  const int sr = ((shift0 % H) + H) % H;
-  const int sc = ((shift1 % W) + W) % W;
-  // 16-byte copies where every run of 4 proposal words is 16-byte aligned
-  const bool vec = k % 4 == 0 &&
-                   ((uintptr_t)cell | (uintptr_t)dirn | (uintptr_t)u_act |
-                    (uintptr_t)u_dom) % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  constexpr int C = escg::kChunk;
-  if (vec) {
-    ESCG_DISPATCH(cell_bytes, stage_bytes,
-                  (escg::launch<T, S, C, true>(out, in, g, st, sr, sc, rule,
-                                               dom, dirs, s)));
-  } else {
-    ESCG_DISPATCH(cell_bytes, stage_bytes,
-                  (escg::launch<T, S, C, false>(out, in, g, st, sr, sc,
-                                                rule, dom, dirs, s)));
-  }
-  return (int)cudaErrorInvalidValue;
+  return escg::round_launch(cell_bytes, stage_bytes, tiles_per_block, out,
+                            in, 1, H, W, th, tw, k, cell, dirn, u_act, u_dom,
+                            dom, n_dom, dirs, t_eps, t_eps_mu, shift0, shift1,
+                            nullptr, device, stream);
+}
+
+// K3 over n_trials lattices stacked in `in` and `out`, with (n_trials, T, K)
+// proposal fields and the (n_trials, 2) int64 shifts on the card.
+int escg_tile_round_trials(int cell_bytes, int stage_bytes,
+                           int tiles_per_block, void* out, const void* in,
+                           int n_trials, int H, int W, int th, int tw, int k,
+                           const int* cell, const int* dirn,
+                           const float* u_act, const float* u_dom,
+                           const float* dom, int n_dom, const int* dirs,
+                           float t_eps, float t_eps_mu, const int64_t* shifts,
+                           int device, void* stream) {
+  return escg::round_launch(cell_bytes, stage_bytes, tiles_per_block, out,
+                            in, n_trials, H, W, th, tw, k, cell, dirn, u_act,
+                            u_dom, dom, n_dom, dirs, t_eps, t_eps_mu, 0, 0,
+                            shifts, device, stream);
 }
 
 const char* escg_error_string(int err) {

@@ -3,6 +3,7 @@
 // Replaces the two Pallas TPU kernels of src/repro/kernels/escg_update_fused.py:
 //   K1 tile_round_kernel   <- escg_tile_round_fused  (_kernel, _apply_proposal)
 //   K2 tile_rounds_kernel  <- escg_tile_rounds_fused (_mega_kernel)
+// each over one lattice or a batch of trials
 //
 // What they compute. The lattice, rolled by -shift (the torus shift of the
 // sublattice scheme), is cut into (th, tw) tiles. Tile (i, j) has the global
@@ -14,6 +15,13 @@
 // round. K2 runs K Monte-Carlo steps in one launch: step t rolls by
 // -shifts[t], sweeps every tile with seeds[t] at round 0 and counts the
 // species into counts[t]; the grid stays in the drifted frame.
+//
+// A batch of IID trials (the reference vmaps its engines over them) is n
+// lattices stacked in one buffer, and one launch covers them all: K1
+// takes the trial from blockIdx.y and its seed words and shift from
+// (n, 2) arrays on the card, and K2's blocks walk (trial, tile group)
+// pairs. The trial never enters a Philox counter or a tile id: as in the
+// reference, where each trial has its own key, trials differ by their seeds.
 //
 // What bounds them on this card. Every proposal costs some 80 integer and
 // float instructions against 4 one-cell accesses, so the sweep is bound by
@@ -170,18 +178,23 @@ __device__ void count_group(const uint32_t* words, const Geometry& g,
   }
 }
 
-// K1: one round, one block per group of P tiles, read from `in` rolled by
-// (-sr, -sc) and written to `out`.
+// The torus shift of a trial, (shift mod side) for a shift of any sign.
+__device__ __forceinline__ int wrap(int64_t shift, int side) {
+  return (int)(((shift % side) + side) % side);
+}
+
+// One round over the group's P tiles of one lattice, read from `in` rolled
+// by (-sr, -sc) and written to `out`.
 template <typename T, typename S>
-__global__ void __launch_bounds__(kWarp)
-    tile_round_kernel(const T* in, T* out, Geometry g, Sweep sw, int sr,
-                      int sc, uint32_t seed0, uint32_t seed1,
-                      uint32_t round) {
-  extern __shared__ uint32_t words[];
-  __shared__ int sdirs[16];
-  load_dirs(sw.dirs, sdirs);
+__device__ __forceinline__ void round_group(const T* in, T* out,
+                                            uint32_t* words,
+                                            const Geometry& g,
+                                            const Sweep& sw, const int* sdirs,
+                                            int group, int sr, int sc,
+                                            uint32_t seed0, uint32_t seed1,
+                                            uint32_t round) {
   int r0, c0;
-  const int tile = group_tile(g, blockIdx.x, threadIdx.x, &r0, &c0);
+  const int tile = group_tile(g, group, threadIdx.x, &r0, &c0);
   load_group<T, S>(in, words, g, tile, r0, c0, sr, sc);
   __syncwarp();
   if (tile >= 0) sweep_tile<S>(words, g, sw, sdirs, tile, round, seed0, seed1);
@@ -189,17 +202,61 @@ __global__ void __launch_bounds__(kWarp)
   store_group<T, S>(out, words, g, tile, r0, c0);
 }
 
-// K2: n_steps Monte-Carlo steps in one cooperative launch. Step t reads the
-// previous step's lattice (`in` for t = 0) rolled by -shifts[t], sweeps it
-// tile group by tile group and writes it to the ping-pong buffer that makes
-// the last step land in `out`; counts[t] (zeroed before the launch) gets its
-// species counts. One grid barrier separates a step's writes from the next
-// step's reads; the buffer a step writes was last read two steps before.
+// K1: one round, one block per group of P tiles, over n lattices stacked in
+// `in` and `out` (one lattice: n = 1). blockIdx.y is the lattice t, read
+// rolled by its shift and written to its H x W slice of `out`. With `seeds`
+// null (one lattice) the seed words and shift are the scalars; else those
+// of trial t are seeds[t] and shifts[t] ((n, 2) int64 on the card). The
+// Philox counters are those of one lattice: trials differ by their seeds.
+template <typename T, typename S>
+__global__ void __launch_bounds__(kWarp)
+    tile_round_kernel(const T* in, T* out, Geometry g, Sweep sw,
+                      const int64_t* seeds, const int64_t* shifts, int sr,
+                      int sc, uint32_t seed0, uint32_t seed1,
+                      uint32_t round) {
+  extern __shared__ uint32_t words[];
+  __shared__ int sdirs[16];
+  load_dirs(sw.dirs, sdirs);
+  const int t = blockIdx.y;
+  if (seeds != nullptr) {
+    sr = wrap(shifts[2 * t], g.H);
+    sc = wrap(shifts[2 * t + 1], g.W);
+    seed0 = (uint32_t)seeds[2 * t];
+    seed1 = (uint32_t)seeds[2 * t + 1];
+  }
+  const size_t cells = (size_t)g.H * g.W;
+  round_group<T, S>(in + t * cells, out + t * cells, words, g, sw, sdirs,
+                    blockIdx.x, sr, sc, seed0, seed1, round);
+}
+
+// Add a warp's bins into `dst` and zero them.
+__device__ __forceinline__ void flush_bins(int* bins, int n_dom, int* dst) {
+  __syncwarp();
+  for (int b = threadIdx.x; b < n_dom; b += kWarp) {
+    if (bins[b]) atomicAdd(&dst[b], bins[b]);
+    bins[b] = 0;
+  }
+  __syncwarp();
+}
+
+// K2: n_steps Monte-Carlo steps of n_trials lattices in one cooperative
+// launch (one lattice: n_trials = 1). Trial t's lattice is the t-th H x W
+// slice of each buffer; its step s takes seeds[t][s] and shifts[t][s]
+// ((n_trials, n_steps, 2) int64) and counts into counts[t][s] ((n_trials,
+// n_steps, n_dom), zeroed before the launch). Step s reads the previous
+// step's lattice (`in` for s = 0) rolled by -shifts[t][s], sweeps it tile
+// group by tile group and writes it to the ping-pong buffer that makes the
+// last step land in `out`. The blocks walk the (trial, group) pairs, so a
+// group never straddles two trials; a block's bins hold one trial's counts
+// and go to counts[t][s] when its walk reaches another trial and at the end
+// of the step, with integer atomics, exact in any order. One grid barrier
+// separates a step's writes from the next step's reads; the buffer a step
+// writes was last read two steps before.
 template <typename T, typename S>
 __global__ void __launch_bounds__(kWarp)
     tile_rounds_kernel(const T* in, T* out, T* scratch, Geometry g, Sweep sw,
                        const int64_t* seeds, const int64_t* shifts,
-                       int n_steps, int* counts) {
+                       int n_trials, int n_steps, int* counts) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ uint32_t words[];
   int* bins = reinterpret_cast<int*>(words + g.th * g.G * g.P);
@@ -208,32 +265,34 @@ __global__ void __launch_bounds__(kWarp)
   const int n_dom = sw.rule.n_dom;
   for (int b = threadIdx.x; b < n_dom; b += kWarp) bins[b] = 0;
   const int n_groups = (g.n_tiles + g.P - 1) / g.P;
+  const int64_t n_items = (int64_t)n_trials * n_groups;
+  const size_t cells = (size_t)g.H * g.W;
   __syncwarp();
 
   const T* src = in;
-  for (int t = 0; t < n_steps; ++t) {
-    T* dst = ((n_steps - 1 - t) % 2 == 0) ? out : scratch;
-    const int sr = (int)(((shifts[2 * t] % g.H) + g.H) % g.H);
-    const int sc = (int)(((shifts[2 * t + 1] % g.W) + g.W) % g.W);
-    const uint32_t seed0 = (uint32_t)seeds[2 * t];
-    const uint32_t seed1 = (uint32_t)seeds[2 * t + 1];
-    for (int group = blockIdx.x; group < n_groups; group += gridDim.x) {
-      int r0, c0;
-      const int tile = group_tile(g, group, threadIdx.x, &r0, &c0);
-      load_group<T, S>(src, words, g, tile, r0, c0, sr, sc);
-      __syncwarp();
-      if (tile >= 0) sweep_tile<S>(words, g, sw, sdirs, tile, 0u, seed0, seed1);
-      __syncwarp();
+  for (int s = 0; s < n_steps; ++s) {
+    T* dst = ((n_steps - 1 - s) % 2 == 0) ? out : scratch;
+    int held = -1;  // the trial whose counts the bins hold
+    for (int64_t item = blockIdx.x; item < n_items; item += gridDim.x) {
+      const int t = (int)(item / n_groups);
+      const int group = (int)(item - (int64_t)t * n_groups);
+      if (t != held) {
+        if (held >= 0)
+          flush_bins(bins, n_dom,
+                     counts + ((size_t)held * n_steps + s) * n_dom);
+        held = t;
+      }
+      const size_t at = ((size_t)t * n_steps + s) * 2;
+      round_group<T, S>(src + t * cells, dst + t * cells, words, g, sw,
+                        sdirs, group, wrap(shifts[at], g.H),
+                        wrap(shifts[at + 1], g.W), (uint32_t)seeds[at],
+                        (uint32_t)seeds[at + 1], 0u);
       count_group<S>(words, g, group, n_dom, bins);
-      store_group<T, S>(dst, words, g, tile, r0, c0);
       __syncwarp();
     }
-    for (int b = threadIdx.x; b < n_dom; b += kWarp) {
-      if (bins[b]) atomicAdd(&counts[t * n_dom + b], bins[b]);
-      bins[b] = 0;
-    }
-    __syncwarp();
-    if (t + 1 < n_steps) grid.sync();
+    if (held >= 0)
+      flush_bins(bins, n_dom, counts + ((size_t)held * n_steps + s) * n_dom);
+    if (s + 1 < n_steps) grid.sync();
     src = dst;
   }
 }
@@ -244,15 +303,17 @@ __host__ inline size_t block_smem(const Geometry& g, int n_dom) {
 }
 
 template <typename T, typename S>
-int launch_round(void* out, const void* in, const Geometry& g,
-                 const Sweep& sw, int sr, int sc, uint32_t seed0,
+int launch_round(void* out, const void* in, int n, const Geometry& g,
+                 const Sweep& sw, const int64_t* seeds,
+                 const int64_t* shifts, int sr, int sc, uint32_t seed0,
                  uint32_t seed1, uint32_t round, cudaStream_t stream) {
   const size_t smem = block_smem(g, sw.rule.n_dom);
   cudaError_t err = allow_smem((const void*)tile_round_kernel<T, S>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (g.n_tiles + g.P - 1) / g.P;
-  tile_round_kernel<T, S><<<n_groups, kWarp, smem, stream>>>(
-      (const T*)in, (T*)out, g, sw, sr, sc, seed0, seed1, round);
+  tile_round_kernel<T, S><<<dim3(n_groups, n), kWarp, smem, stream>>>(
+      (const T*)in, (T*)out, g, sw, seeds, shifts, sr, sc, seed0, seed1,
+      round);
   return (int)cudaGetLastError();
 }
 
@@ -276,8 +337,8 @@ int cooperative_blocks(const Geometry& g, int n_dom, int device) {
 template <typename T, typename S>
 int launch_rounds(void* out, void* scratch, const void* in,
                   const Geometry& g, const Sweep& sw, const int64_t* seeds,
-                  const int64_t* shifts, int n_steps, int* counts,
-                  int device, cudaStream_t stream) {
+                  const int64_t* shifts, int n_trials, int n_steps,
+                  int* counts, int device, cudaStream_t stream) {
   int coop = 0;
   cudaError_t err =
       cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, device);
@@ -285,19 +346,21 @@ int launch_rounds(void* out, void* scratch, const void* in,
   if (!coop) return (int)cudaErrorCooperativeLaunchTooLarge;
   const int max_blocks = cooperative_blocks<T, S>(g, sw.rule.n_dom, device);
   if (max_blocks < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  err = cudaMemsetAsync(counts, 0,
-                        (size_t)n_steps * sw.rule.n_dom * sizeof(int),
-                        stream);
+  err = cudaMemsetAsync(
+      counts, 0, (size_t)n_trials * n_steps * sw.rule.n_dom * sizeof(int),
+      stream);
   if (err != cudaSuccess) return (int)err;
-  const int n_groups = (g.n_tiles + g.P - 1) / g.P;
-  const int blocks = n_groups < max_blocks ? n_groups : max_blocks;
+  // the blocks stride over the (trial, group) pairs, so the grid need not
+  // grow with the trials beyond what can be resident at once
+  const int64_t n_items = (int64_t)n_trials * ((g.n_tiles + g.P - 1) / g.P);
+  const int blocks = (int)(n_items < max_blocks ? n_items : max_blocks);
   const T* in_t = (const T*)in;
   T* out_t = (T*)out;
   T* scratch_t = (T*)scratch;
   Geometry g_arg = g;
   Sweep sw_arg = sw;
-  void* args[] = {&in_t,  &out_t,   &scratch_t, &g_arg,  &sw_arg,
-                  &seeds, &shifts, &n_steps,   &counts};
+  void* args[] = {&in_t,   &out_t,  &scratch_t, &g_arg,   &sw_arg,
+                  &seeds,  &shifts, &n_trials,  &n_steps, &counts};
   err = cudaLaunchCooperativeKernel((const void*)tile_rounds_kernel<T, S>,
                                     dim3(blocks), dim3(kWarp), args,
                                     block_smem(g, sw.rule.n_dom), stream);
@@ -313,16 +376,24 @@ extern "C" {
 // stage_bytes the type its cells are staged in (1, or cell_bytes);
 // tiles_per_block is how many tiles a block stages (1..32). Every entry
 // point returns a cudaError_t (0 = launched).
+//
+// K1 over n lattices stacked in `in` and `out` (one lattice: n = 1). With
+// `seeds` null the seed words are seed0/seed1 and the shift shift0/shift1;
+// else each lattice's are its rows of the (n, 2) int64 `seeds` and `shifts`
+// on the card.
 int escg_tile_round_fused(int cell_bytes, int stage_bytes,
                           int tiles_per_block, void* out, const void* in,
-                          int H, int W, int th, int tw, int k, uint32_t gw,
-                          uint32_t off0, uint32_t off1, uint32_t seed0,
-                          uint32_t seed1, uint32_t round, int shift0,
-                          int shift1, const float* dom, int n_dom,
-                          const int* dirs, int nbhd, float t_eps,
+                          int n, int H, int W, int th, int tw, int k,
+                          uint32_t gw, uint32_t off0, uint32_t off1,
+                          const int64_t* seeds, const int64_t* shifts,
+                          uint32_t seed0, uint32_t seed1, uint32_t round,
+                          int shift0, int shift1, const float* dom,
+                          int n_dom, const int* dirs, int nbhd, float t_eps,
                           float t_eps_mu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (n < 1 || n > 65535 || (n > 1 && seeds == nullptr))
+    return (int)cudaErrorInvalidValue;
   const escg::Geometry g =
       escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
   const escg::Sweep sw{k, gw, off0, off1,
@@ -331,17 +402,21 @@ int escg_tile_round_fused(int cell_bytes, int stage_bytes,
   const int sc = ((shift1 % W) + W) % W;
   cudaStream_t s = (cudaStream_t)stream;
   ESCG_DISPATCH(cell_bytes, stage_bytes,
-                (escg::launch_round<T, S>(out, in, g, sw, sr, sc,
-                                          seed0, seed1, round, s)));
+                (escg::launch_round<T, S>(out, in, n, g, sw, seeds, shifts,
+                                          sr, sc, seed0, seed1, round, s)));
   return (int)cudaErrorInvalidValue;
 }
 
+// K2 over n_trials lattices stacked in `in`, `out` and `scratch` (one
+// lattice: n_trials = 1), with seeds and shifts (n_trials, n_steps, 2)
+// int64 and counts (n_trials, n_steps, n_dom) int32 on the card.
 int escg_tile_rounds_fused(int cell_bytes, int stage_bytes,
                            int tiles_per_block, void* out, void* scratch,
-                           const void* in, int H, int W, int th, int tw,
-                           int k, uint32_t gw, uint32_t off0, uint32_t off1,
-                           const int64_t* seeds, const int64_t* shifts,
-                           int n_steps, const float* dom, int n_dom,
+                           const void* in, int n_trials, int H, int W,
+                           int th, int tw, int k, uint32_t gw, uint32_t off0,
+                           uint32_t off1, const int64_t* seeds,
+                           const int64_t* shifts, int n_steps,
+                           const float* dom, int n_dom,
                            const int* dirs, int nbhd, float t_eps,
                            float t_eps_mu, int* counts, int device,
                            void* stream) {
@@ -354,8 +429,8 @@ int escg_tile_rounds_fused(int cell_bytes, int stage_bytes,
   cudaStream_t s = (cudaStream_t)stream;
   ESCG_DISPATCH(cell_bytes, stage_bytes,
                 (escg::launch_rounds<T, S>(out, scratch, in, g, sw, seeds,
-                                           shifts, n_steps, counts, device,
-                                           s)));
+                                           shifts, n_trials, n_steps, counts,
+                                           device, s)));
   return (int)cudaErrorInvalidValue;
 }
 

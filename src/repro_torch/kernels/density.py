@@ -20,8 +20,16 @@ over several devices copies its partials to the first device and sums
 them in int32. Its plain twin is ``density_counts_plain`` of the gathered
 lattice.
 
+K4 per trial, ``density_counts_trials``: the counts of each lattice of a
+batch of IID trials stacked as one (n, ...) tensor, (n, S+1) int32, in one
+launch of K4's ``density_kernel``, which counts a lattice as a batch of
+one: one slice of the grid per trial, each with its own accumulators and
+ticket in a scratch that grows with the batch. Its plain version is K4's,
+trial by trial.
+
 The wrappers launch the kernels for CUDA tensors and take the plain
-versions only for CPU tensors. ``LAUNCHES`` counts kernel launches.
+versions only for CPU tensors. ``LAUNCHES`` counts kernel launches, the
+per-trial form's under its own name.
 """
 from __future__ import annotations
 
@@ -32,15 +40,20 @@ import torch
 
 from . import build
 
-LAUNCHES = {"density_counts": 0, "density_counts_sharded": 0}
+LAUNCHES = {"density_counts": 0, "density_counts_sharded": 0,
+            "density_counts_trials": 0}
 
 _LIB = "density"
 MAX_LABELS = 4096      # the bins live in a block's shared memory
 MAX_GROUP = 32         # blocks in one K4s launch (kMaxGroup of the source)
+MAX_TRIALS = 65535     # trials in one per-trial launch (the grid's y extent)
 
-# (device, stream) -> that stream's scratch: the ticket and the
-# MAX_LABELS accumulators, zero between launches (each launch's last block
-# zeroes them again). Launches on one stream run in order, so they share it.
+# (device, stream) -> that stream's scratch: the tickets and accumulators
+# of K4 (a ticket and S+1 words a trial) and K4s (one ticket and S+1
+# words), zero between launches (each launch's last blocks zero them
+# again). Launches on one stream run in order, so they share it; a batch
+# that outgrows it replaces it with a larger zero buffer (the stream's
+# order keeps the old one alive until its last launch is done).
 _SCRATCH: Dict[Tuple[int, int], torch.Tensor] = {}
 
 
@@ -49,7 +62,8 @@ def _lib() -> ctypes.CDLL:
     fn = lib.density_counts
     if fn.argtypes is None:
         i32, ptr = ctypes.c_int, ctypes.c_void_p
-        fn.argtypes = [i32, ptr, ctypes.c_int64, i32, ptr, ptr, i32, ptr]
+        fn.argtypes = [i32, ptr, i32, ctypes.c_int64, i32, ptr, ptr, i32,
+                       ptr]
         fn.restype = i32
         grouped = lib.density_counts_grouped
         grouped.argtypes = [i32, ptr, i32, ctypes.c_int64, i32, ptr, ptr,
@@ -58,15 +72,31 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def _scratch(grid: torch.Tensor, device: int,
-             stream: ctypes.c_void_p) -> torch.Tensor:
-    """The scratch of the launch's stream, made zero at its first use."""
+def _scratch(grid: torch.Tensor, device: int, stream: ctypes.c_void_p,
+             words: int) -> torch.Tensor:
+    """The scratch of the launch's stream, at least ``words`` long, made
+    zero at its first use."""
     key = (device, stream.value or 0)
     buf = _SCRATCH.get(key)
-    if buf is None:
-        buf = _SCRATCH[key] = torch.zeros(1 + MAX_LABELS, dtype=torch.int32,
+    if buf is None or buf.numel() < words:
+        buf = _SCRATCH[key] = torch.zeros(max(words, 1 + MAX_LABELS),
+                                          dtype=torch.int32,
                                           device=grid.device)
     return buf
+
+
+def _launch(grids: torch.Tensor, n_runs: int, species: int,
+            out: torch.Tensor) -> None:
+    """One K4 launch counting the n_runs equal runs stacked in ``grids``
+    into ``out`` ((n_runs, S+1) int32)."""
+    device, stream = build.launch_args(grids)
+    scratch = _scratch(grids, device, stream, n_runs * (species + 2))
+    lib = _lib()
+    err = lib.density_counts(grids.element_size(), build.ptr(grids), n_runs,
+                             grids.numel() // n_runs, species + 1,
+                             build.ptr(out), build.ptr(scratch), device,
+                             stream)
+    build.check(lib, err, "density_counts launch")
 
 
 def density_counts_plain(grid: torch.Tensor, species: int) -> torch.Tensor:
@@ -94,14 +124,8 @@ def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     _check_grid(grid, species)
     if grid.device.type == "cpu":
         return density_counts_plain(grid, species)
-    device, stream = build.launch_args(grid)
-    scratch = _scratch(grid, device, stream)
     out = torch.empty(species + 1, dtype=torch.int32, device=grid.device)
-    lib = _lib()
-    err = lib.density_counts(grid.element_size(), build.ptr(grid),
-                             grid.numel(), species + 1, build.ptr(out),
-                             build.ptr(scratch), device, stream)
-    build.check(lib, err, "density_counts launch")
+    _launch(grid, 1, species, out)
     LAUNCHES["density_counts"] += 1
     return out
 
@@ -116,7 +140,7 @@ def _grouped_counts(blocks: Sequence[torch.Tensor],
         return torch.stack([density_counts(b, species)
                             for b in blocks]).sum(dim=0, dtype=torch.int32)
     device, stream = build.launch_args(first)
-    scratch = _scratch(first, device, stream)
+    scratch = _scratch(first, device, stream, 1 + species + 1)
     out = torch.empty(species + 1, dtype=torch.int32, device=first.device)
     runs = (ctypes.c_void_p * len(blocks))(
         *(build.ptr(b).value for b in blocks))
@@ -162,3 +186,26 @@ def density_counts_sharded(blocks: Sequence[torch.Tensor],
     dest = blocks[0].device
     return torch.stack([p.to(dest) for p in parts]).sum(dim=0,
                                                         dtype=torch.int32)
+
+
+def density_counts_trials_plain(grids: torch.Tensor,
+                                species: int) -> torch.Tensor:
+    """Plain version of K4 per trial: K4's plain version of each trial."""
+    return torch.stack([density_counts_plain(g, species) for g in grids])
+
+
+def density_counts_trials(grids: torch.Tensor, species: int) -> torch.Tensor:
+    """Counts per label 0..S of each lattice of a contiguous (n, ...)
+    int8/int16/int32 trial batch, (n, S+1) int32 on the grids' device: one
+    launch for every trial on a card."""
+    _check_grid(grids, species)
+    if grids.dim() < 2 or not 1 <= grids.shape[0] <= MAX_TRIALS:
+        raise ValueError(f"a trial batch is (n, ...) with 1 <= n <= "
+                         f"{MAX_TRIALS}, got {tuple(grids.shape)}")
+    if grids.device.type == "cpu":
+        return density_counts_trials_plain(grids, species)
+    out = torch.empty((grids.shape[0], species + 1), dtype=torch.int32,
+                      device=grids.device)
+    _launch(grids, grids.shape[0], species, out)
+    LAUNCHES["density_counts_trials"] += 1
+    return out

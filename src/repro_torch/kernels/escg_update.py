@@ -11,8 +11,14 @@ in double-buffered chunks of ``CHUNK`` per tile; ``staging`` sizes it and
 raises for a tile that does not fit. Its plain version is
 ``core.sublattice.tile_update`` over all tiles.
 
-The wrapper launches the kernel for a CUDA grid; for a CPU grid it rolls
-and takes the plain version. ``LAUNCHES`` counts kernel launches.
+``escg_tile_round_trials`` is K3 over a batch of IID trials: n lattices
+stacked as one (n, H, W) tensor, (n, T, K) proposal fields and (n, 2)
+shifts on the card, one launch for all of them; its plain version is the
+single-lattice one, trial by trial.
+
+The wrappers launch the kernel for a CUDA grid; for a CPU grid they roll
+and take the plain version. ``LAUNCHES`` counts kernel launches, the
+trial form's under its own name.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from ..core.rng import ProposalBatch
 from . import build
 from . import escg_update_fused as fused
 
-LAUNCHES = {"escg_tile_round": 0}
+LAUNCHES = {"escg_tile_round": 0, "escg_tile_round_trials": 0}
 
 _LIB = "escg_update"
 # kChunk and kPad of csrc/escg_update.cu: proposals per tile in a chunk, and
@@ -45,6 +51,11 @@ def _lib() -> ctypes.CDLL:
         fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
                        ptr, ptr, ptr, ptr, ptr, i32, ptr, f32, f32, i32, i32,
                        i32, ptr]
+        fn.restype = i32
+        fn = lib.escg_tile_round_trials
+        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32, i32,
+                       ptr, ptr, ptr, ptr, ptr, i32, ptr, f32, f32, ptr, i32,
+                       ptr]
         fn.restype = i32
     return lib
 
@@ -137,4 +148,71 @@ def escg_tile_round(grid: torch.Tensor, cell: torch.Tensor,
         dy % h, dx % w, device, stream)
     build.check(lib, err, "escg_tile_round launch")
     LAUNCHES["escg_tile_round"] += 1
+    return out
+
+
+# ---------------------- the trial form: K3 per batch ----------------------- #
+
+def escg_tile_round_trials_plain(grids: torch.Tensor, cell: torch.Tensor,
+                                 dirn: torch.Tensor, u_act: torch.Tensor,
+                                 u_dom: torch.Tensor, dom: torch.Tensor,
+                                 tile_shape: Tuple[int, int], t_eps: float,
+                                 t_eps_mu: float,
+                                 shifts: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3 over trials: each trial rolled by its shift and
+    swept with its (T, K) proposals by the plain K3."""
+    return torch.stack([
+        escg_tile_round_plain(torch.roll(g, (-dy, -dx), (0, 1)), c, d, ua,
+                              ud, dom, tile_shape, t_eps, t_eps_mu)
+        for g, c, d, ua, ud, (dy, dx) in zip(grids, cell, dirn, u_act,
+                                             u_dom, shifts.tolist())])
+
+
+def escg_tile_round_trials(grids: torch.Tensor, cell: torch.Tensor,
+                           dirn: torch.Tensor, u_act: torch.Tensor,
+                           u_dom: torch.Tensor, dom: torch.Tensor,
+                           dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                           t_eps: float, t_eps_mu: float,
+                           shifts: torch.Tensor) -> torch.Tensor:
+    """One sublattice round of every trial of the (n, H, W) batch in one
+    K3 launch: trial t reads its lattice rolled by ``-shifts[t]`` ((n, 2)
+    int64 on the grids' device) and plays its (T, K) slice of the (n, T,
+    K) proposal fields; returns the new batch in the rolled frames."""
+    if grids.dim() != 3 or not 1 <= grids.shape[0] <= fused.MAX_TRIALS:
+        raise ValueError(f"a trial batch is (n, H, W) with 1 <= n <= "
+                         f"{fused.MAX_TRIALS}, got {tuple(grids.shape)}")
+    n = grids.shape[0]
+    if cell.dim() != 3 or cell.shape[0] != n:
+        raise ValueError(f"proposals must be ({n}, T, K), got "
+                         f"{tuple(cell.shape)}")
+    for t in (dirn, u_act, u_dom):
+        if t.shape != cell.shape:
+            raise ValueError(f"the proposal fields differ in shape: "
+                             f"{tuple(t.shape)} beside {tuple(cell.shape)}")
+    k = _check(grids[0], cell[0], dirn[0], u_act[0], u_dom[0], tile_shape)
+    if shifts.dtype != torch.int64 or tuple(shifts.shape) != (n, 2) \
+            or shifts.device != grids.device:
+        raise ValueError(f"shifts must be ({n}, 2) int64 on {grids.device}, "
+                         f"got {tuple(shifts.shape)} {shifts.dtype} on "
+                         f"{shifts.device}")
+    build.check_tables(grids, dom, dirs)
+    if grids.device.type == "cpu":
+        return escg_tile_round_trials_plain(grids, cell, dirn, u_act, u_dom,
+                                            dom, tile_shape, t_eps, t_eps_mu,
+                                            shifts)
+    stage, per_block = staging(tile_shape, grids.element_size(),
+                               dom.shape[0])
+    device, stream = build.launch_args(grids)
+    _, h, w = grids.shape
+    th, tw = tile_shape
+    out = torch.empty_like(grids)
+    lib = _lib()
+    err = lib.escg_tile_round_trials(
+        grids.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(grids), n, h, w, th, tw, int(k), build.ptr(cell),
+        build.ptr(dirn), build.ptr(u_act), build.ptr(u_dom), build.ptr(dom),
+        dom.shape[0], build.ptr(dirs), float(t_eps), float(t_eps_mu),
+        build.ptr(shifts), device, stream)
+    build.check(lib, err, "escg_tile_round_trials launch")
+    LAUNCHES["escg_tile_round_trials"] += 1
     return out

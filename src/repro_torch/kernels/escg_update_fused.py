@@ -16,14 +16,22 @@ plain PyTorch versions:
 ``tile_offset``/``grid_tiles_w`` key the counters by global tile identity
 when the grid is one shard of a larger lattice (DESIGN.md §6).
 
+The trial forms ``escg_tile_round_fused_trials`` and
+``escg_tile_rounds_fused_trials`` take a batch of IID trials, n lattices
+stacked as one (n, H, W) tensor with each trial's seed words and shifts in
+tensors on the card, and run K1 or K2 once for all of them; the trial never
+enters a Philox counter, so trial t equals the single-lattice kernel with
+its own seeds and shift (the reference vmaps its kernels over trials).
+Their plain versions are the single-lattice ones, trial by trial.
+
 On the card a block stages up to 32 tiles in shared memory, as int8 where
 the labels 0..S fit it (S <= 127) and else in the lattice's type;
 ``staging`` sizes it and raises for a tile that does not fit.
 
 A wrapper launches its kernel for a CUDA tensor and takes the plain
-version only for a CPU tensor. ``LAUNCHES`` counts kernel launches (plain
-calls are not counted), so a run can show that it went through the
-kernels.
+version only for a CPU tensor. ``LAUNCHES`` counts kernel launches, the
+trial forms' under their own names (plain calls are not counted), so a
+run can show that it went through the kernels.
 """
 from __future__ import annotations
 
@@ -38,13 +46,16 @@ from ..core.threefry import MASK, mul32
 from . import build
 from .philox import philox_proposal_fields
 
-LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0}
+LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0,
+            "escg_tile_round_fused_trials": 0,
+            "escg_tile_rounds_fused_trials": 0}
 
 _LIB = "escg_update_fused"
 # the shared memory a block may use on the H100 (227 KB), less the kernels'
 # static direction table
 SMEM_BYTES = 232448 - 64
 TILES_PER_BLOCK = 32        # a block is one warp, one tile per lane
+MAX_TRIALS = 65535          # trials in one launch (the grid's y extent)
 
 
 def reset_launches() -> None:
@@ -122,12 +133,12 @@ def _lib() -> ctypes.CDLL:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
         f32 = ctypes.c_float
         fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
-                       u32, u32, u32, u32, u32, u32, i32, i32, ptr, i32,
-                       ptr, i32, f32, f32, i32, ptr]
+                       i32, u32, u32, u32, ptr, ptr, u32, u32, u32, i32, i32,
+                       ptr, i32, ptr, i32, f32, f32, i32, ptr]
         fn.restype = i32
         fn = lib.escg_tile_rounds_fused
         fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32,
-                       i32, u32, u32, u32, ptr, ptr, i32, ptr, i32, ptr,
+                       i32, i32, u32, u32, u32, ptr, ptr, i32, ptr, i32, ptr,
                        i32, f32, f32, ptr, i32, ptr]
         fn.restype = i32
         fn = lib.escg_tile_rounds_fused_blocks
@@ -209,8 +220,8 @@ def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
     lib = _lib()
     err = lib.escg_tile_round_fused(
         grid.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(grid), h, w, th, tw, int(k_per_tile), gtw & MASK,
-        int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK,
+        build.ptr(grid), 1, h, w, th, tw, int(k_per_tile), gtw & MASK,
+        int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK, None, None,
         int(seed[0]) & MASK, int(seed[1]) & MASK, int(round_idx) & MASK,
         int(shift[0]) % h, int(shift[1]) % w, build.ptr(dom), dom.shape[0],
         build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
@@ -284,7 +295,7 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
     lib = _lib()
     err = lib.escg_tile_rounds_fused(
         grid.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(scratch), build.ptr(grid), h, w, th, tw,
+        build.ptr(scratch), build.ptr(grid), 1, h, w, th, tw,
         int(k_per_tile), gtw & MASK,
         int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK,
         build.ptr(seeds), build.ptr(shifts), n_steps, build.ptr(dom),
@@ -292,4 +303,144 @@ def escg_tile_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
         float(t_eps_mu), build.ptr(counts), device, stream)
     build.check(lib, err, "escg_tile_rounds_fused cooperative launch")
     LAUNCHES["escg_tile_rounds_fused"] += 1
+    return out, counts
+
+
+# ------------------ the trial forms: K1 and K2 per batch ------------------- #
+
+def _check_trials(grids: torch.Tensor, tile_shape: Tuple[int, int],
+                  k_per_tile: int, tensors, lead: Tuple[int, ...]) -> int:
+    """Validate a trial batch (n, H, W) and its (n, *lead, 2) int64 tensors
+    on the grids' device; returns n."""
+    if grids.dim() != 3 or grids.shape[0] < 1:
+        raise ValueError(f"a trial batch is (n, H, W), got shape "
+                         f"{tuple(grids.shape)}")
+    if grids.shape[0] > MAX_TRIALS:
+        raise ValueError(f"{grids.shape[0]} trials in one launch; at most "
+                         f"{MAX_TRIALS}")
+    _geometry(grids[0], tile_shape, k_per_tile, None)
+    n = grids.shape[0]
+    for name, t in tensors:
+        want = (n,) + lead + (2,)
+        if t.dtype != torch.int64 or tuple(t.shape) != want \
+                or t.device != grids.device:
+            raise ValueError(f"{name} must be {want} int64 on "
+                             f"{grids.device}, got {tuple(t.shape)} "
+                             f"{t.dtype} on {t.device}")
+    return n
+
+
+def escg_tile_round_fused_trials_plain(grids: torch.Tensor,
+                                       seeds: torch.Tensor,
+                                       shifts: torch.Tensor,
+                                       dom: torch.Tensor,
+                                       tile_shape: Tuple[int, int],
+                                       k_per_tile: int, t_eps: float,
+                                       t_eps_mu: float,
+                                       neighbourhood: int = 4,
+                                       round_idx: int = 0) -> torch.Tensor:
+    """Plain version of K1 over trials: the plain K1 of each trial with its
+    seed words and shift."""
+    return torch.stack([
+        escg_tile_round_fused_plain(g, tuple(s), round_idx, dom, tile_shape,
+                                    k_per_tile, t_eps, t_eps_mu,
+                                    neighbourhood, shift=tuple(sh))
+        for g, s, sh in zip(grids, seeds.tolist(), shifts.tolist())])
+
+
+def escg_tile_round_fused_trials(grids: torch.Tensor, seeds: torch.Tensor,
+                                 shifts: torch.Tensor, dom: torch.Tensor,
+                                 dirs: torch.Tensor,
+                                 tile_shape: Tuple[int, int],
+                                 k_per_tile: int, t_eps: float,
+                                 t_eps_mu: float, neighbourhood: int = 4,
+                                 round_idx: int = 0) -> torch.Tensor:
+    """One fused round of every trial of the (n, H, W) batch in one K1
+    launch: trial t reads its lattice rolled by ``-shifts[t]`` and draws
+    with the seed words ``seeds[t]`` (both (n, 2) int64 on the grids'
+    device); returns the new batch in the rolled frames."""
+    n = _check_trials(grids, tile_shape, k_per_tile,
+                      (("seeds", seeds), ("shifts", shifts)), ())
+    _check_tables(grids, dom, dirs, neighbourhood)
+    if grids.device.type == "cpu":
+        return escg_tile_round_fused_trials_plain(
+            grids, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
+            t_eps_mu, neighbourhood, round_idx)
+    _, h, w = grids.shape
+    th, tw = tile_shape
+    stage, per_block = staging(tile_shape, grids.element_size(),
+                               dom.shape[0])
+    device, stream = build.launch_args(grids)
+    out = torch.empty_like(grids)
+    lib = _lib()
+    err = lib.escg_tile_round_fused(
+        grids.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(grids), n, h, w, th, tw, int(k_per_tile), (w // tw) & MASK,
+        0, 0, build.ptr(seeds), build.ptr(shifts), 0, 0,
+        int(round_idx) & MASK, 0, 0, build.ptr(dom), dom.shape[0],
+        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
+        device, stream)
+    build.check(lib, err, "escg_tile_round_fused_trials launch")
+    LAUNCHES["escg_tile_round_fused_trials"] += 1
+    return out
+
+
+def escg_tile_rounds_fused_trials_plain(grids: torch.Tensor,
+                                        seeds: torch.Tensor,
+                                        shifts: torch.Tensor,
+                                        dom: torch.Tensor,
+                                        tile_shape: Tuple[int, int],
+                                        k_per_tile: int, t_eps: float,
+                                        t_eps_mu: float, species: int,
+                                        neighbourhood: int = 4):
+    """Plain version of K2 over trials: the plain K2 of each trial."""
+    runs = [escg_tile_rounds_fused_plain(g, s, sh, dom, tile_shape,
+                                         k_per_tile, t_eps, t_eps_mu,
+                                         species, neighbourhood)
+            for g, s, sh in zip(grids, seeds, shifts)]
+    return (torch.stack([g for g, _ in runs]),
+            torch.stack([c for _, c in runs]))
+
+
+def escg_tile_rounds_fused_trials(grids: torch.Tensor, seeds: torch.Tensor,
+                                  shifts: torch.Tensor, dom: torch.Tensor,
+                                  dirs: torch.Tensor,
+                                  tile_shape: Tuple[int, int],
+                                  k_per_tile: int, t_eps: float,
+                                  t_eps_mu: float, species: int,
+                                  neighbourhood: int = 4):
+    """K fused MCS of every trial of the (n, H, W) batch in one K2 launch.
+    ``seeds``/``shifts``: (n, K, 2) int64 on the grids' device, each
+    trial's rows of ``engines.multi_round_inputs``. Returns ``(grids,
+    counts)`` with counts (n, K, species + 1) int32."""
+    k_steps = seeds.shape[1] if seeds.dim() == 3 else -1
+    n = _check_trials(grids, tile_shape, k_per_tile,
+                      (("seeds", seeds), ("shifts", shifts)), (k_steps,))
+    _check_tables(grids, dom, dirs, neighbourhood)
+    if dom.shape[0] != species + 1:
+        raise ValueError(f"dom is {tuple(dom.shape)} for {species} species")
+    if grids.device.type == "cpu":
+        return escg_tile_rounds_fused_trials_plain(
+            grids, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
+            t_eps_mu, species, neighbourhood)
+    _, h, w = grids.shape
+    th, tw = tile_shape
+    stage, per_block = staging(tile_shape, grids.element_size(), species + 1)
+    device, stream = build.launch_args(grids)
+    counts = torch.empty((n, k_steps, species + 1), dtype=torch.int32,
+                         device=grids.device)
+    if k_steps == 0:
+        return grids.clone(), counts
+    out = torch.empty_like(grids)
+    scratch = torch.empty_like(grids)
+    lib = _lib()
+    err = lib.escg_tile_rounds_fused(
+        grids.element_size(), stage, per_block, build.ptr(out),
+        build.ptr(scratch), build.ptr(grids), n, h, w, th, tw,
+        int(k_per_tile), (w // tw) & MASK, 0, 0, build.ptr(seeds),
+        build.ptr(shifts), k_steps, build.ptr(dom), dom.shape[0],
+        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
+        build.ptr(counts), device, stream)
+    build.check(lib, err, "escg_tile_rounds_fused_trials cooperative launch")
+    LAUNCHES["escg_tile_rounds_fused_trials"] += 1
     return out, counts

@@ -1,8 +1,10 @@
 """Launch wrappers around the kernels (port of ``repro.kernels.ops``): the
 torus roll, which the reference keeps outside its Pallas calls, is fused
 into the tile loads of K1, K2 and K3, and the reference engine's
-sequential scan is S1. ``launches``/``reset_launches`` read and clear every
-kernel's launch count."""
+sequential scan is S1. The ``*_trials`` forms run K1, K2, K3 and K4 over a
+batch of IID trials, one launch for all. ``launches``/``reset_launches``
+read and clear every kernel's launch count, the trial forms' under their
+own names."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -19,8 +21,10 @@ from .philox import philox_bits, philox_uniform
 from .reference_scan import reference_scan
 
 __all__ = ["escg_round", "escg_round_fused", "escg_rounds_fused",
-           "density_counts", "philox_bits", "philox_uniform",
-           "reference_scan", "launches", "reset_launches"]
+           "density_counts", "escg_round_trials", "escg_round_fused_trials",
+           "escg_rounds_fused_trials", "density_counts_trials",
+           "philox_bits", "philox_uniform", "reference_scan", "launches",
+           "reset_launches"]
 
 _COUNTED = (fused, escg_kernel, density_kernel, philox_kernel, scan_kernel)
 
@@ -94,3 +98,47 @@ def escg_rounds_fused(grid: torch.Tensor, seeds: torch.Tensor,
 def density_counts(grid: torch.Tensor, species: int) -> torch.Tensor:
     """Counts per label 0..S, (S+1,) int32 (K4 on the card)."""
     return density_kernel.density_counts(grid, species)
+
+
+def escg_round_trials(grids: torch.Tensor, props: ProposalBatch,
+                      shifts: torch.Tensor, dom: torch.Tensor,
+                      dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                      t_eps: float, t_eps_mu: float) -> torch.Tensor:
+    """Stream-fed round of every trial of an (n, H, W) batch in one K3
+    launch, each trial read rolled by its row of ``shifts`` ((n, 2) int64
+    on the grids' device) and left in its rolled frame."""
+    return escg_kernel.escg_tile_round_trials(
+        grids, props.cell, props.dirn, props.u_act, props.u_dom, dom, dirs,
+        tile_shape, t_eps, t_eps_mu, shifts)
+
+
+def escg_round_fused_trials(grids: torch.Tensor, seeds: torch.Tensor,
+                            shifts: torch.Tensor, dom: torch.Tensor,
+                            dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                            k_per_tile: int, t_eps: float, t_eps_mu: float,
+                            neighbourhood: int = 4) -> torch.Tensor:
+    """Fused-PRNG round of every trial of an (n, H, W) batch in one K1
+    launch, with each trial's seed words and shift ((n, 2) int64 on the
+    grids' device); the frames drift."""
+    return fused.escg_tile_round_fused_trials(
+        grids, seeds, shifts, dom, dirs, tile_shape, k_per_tile, t_eps,
+        t_eps_mu, neighbourhood)
+
+
+def escg_rounds_fused_trials(grids: torch.Tensor, seeds: torch.Tensor,
+                             shifts: torch.Tensor, dom: torch.Tensor,
+                             dirs: torch.Tensor,
+                             tile_shape: Tuple[int, int], k_per_tile: int,
+                             t_eps: float, t_eps_mu: float, species: int,
+                             neighbourhood: int = 4):
+    """K fused MCS of every trial of an (n, H, W) batch in one K2 launch,
+    seeds and shifts (n, K, 2); returns ``(grids, counts (n, K, S+1))``."""
+    return fused.escg_tile_rounds_fused_trials(
+        grids, seeds, shifts, dom, dirs, tile_shape, k_per_tile, t_eps,
+        t_eps_mu, species, neighbourhood)
+
+
+def density_counts_trials(grids: torch.Tensor, species: int) -> torch.Tensor:
+    """Counts per label 0..S of each trial of a batch, (n, S+1) int32 (K4
+    per trial on the card)."""
+    return density_kernel.density_counts_trials(grids, species)

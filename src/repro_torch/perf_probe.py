@@ -1,7 +1,7 @@
 """Where a path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.perf_probe [--engine E] [--out FILE]
-        [--local-kernel K]
+        [--local-kernel K] [--trials N]
 
 Runs park3 at 3200 x 3200 on engine ``E`` (default ``pallas_fused``, the
 main path of ``chip_smoke.py``) and reports:
@@ -32,6 +32,18 @@ default ``fused``, observables off; ``pallas`` with park3's declared
 observables) on a (2, 2) mesh of four ``cuda:0`` entries, the whole
 decomposition on one card. (The plain
 ``sublattice`` engine launches some 7,700 per MCS and is not offered.)
+With ``--trials N`` it probes the trial driver instead (``trials.
+run_trials``, ``E`` one of ``pallas_fused``, ``pallas``, ``batched``): N
+trials of park3 at 3200 x 3200 (``pallas_fused``, ``pallas``, park3's
+declared observables) or of Park's eight species at 100 x 100
+(``batched``, the ``probabilistic`` preset), in chunks of a quarter of a
+window, after a warm-up run. It reports the host time per MCS of the
+batched key chain of all N trials (``schedule_batch``), the steady wall
+per MCS with ``async_stats`` on and off (a run of two windows less a run
+of one, over a window), and from a trace
+of the same chunks on lattices set up beforehand the device time per MCS
+by kernel and the idle share of the steady wall; per trial too.
+
 It prints one JSON object, also written to ``--out``. It needs a card.
 """
 from __future__ import annotations
@@ -44,9 +56,12 @@ import time
 import torch
 
 from .core import batched, engines, lattice, reference, rng, threefry
+from .core import observables as obs_mod
 from .core.scenarios import (EngineConfig, RunConfig, compose,
-                             make_scenario)
+                             make_scenario, resolve_config)
 from .core.simulation import simulate
+from .core.trials import (build_trial_chunk, fold_trial_keys, run_trials,
+                          trial_grids_and_keys)
 
 SIDE, TILE = 3200, (8, 32)
 SHARD_GRID = (2, 2)         # the sharded engine's mesh, all on cuda:0
@@ -104,6 +119,88 @@ def _window(engine: str, k_mcs: int, observables, device=None,
                                  if "reference_scan_kernel" in name),
             "device_ms_per_mcs_by_kernel": dict(
                 sorted(by_kernel.items(), key=lambda kv: -kv[1]))}
+
+
+# the trial windows: (scenario, side, MCS in a window of four chunks)
+TRIAL_CELLS = {"pallas_fused": ("park3", SIDE, 20),
+               "pallas": ("park3", SIDE, 4),
+               "batched": ("probabilistic", 100, 12)}
+
+
+def _trial_window(engine: str, n_trials: int) -> dict:
+    """Steady-state wall per MCS of ``run_trials`` with ``n_trials``
+    trials (``TRIAL_CELLS``): the wall of a run of twice the window less
+    that of a run of the window, over the window, so the lattices' set-up
+    drops out, with ``async_stats`` on and off. The device time per MCS
+    by kernel of the same chunks (``build_trial_chunk`` on lattices set
+    up beforehand, with the observables' rows) from a profiler trace, and
+    the host time of the batched key chain of all trials."""
+    name, side, window = TRIAL_CELLS[engine]
+    chunk_mcs = window // 4
+    sc = make_scenario(name)
+    eng = EngineConfig(engine=engine, tile=TILE)
+    run = RunConfig(length=side, height=side, mcs=window,
+                    chunk_mcs=chunk_mcs)
+
+    def wall_s(mcs, async_stats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run_trials(sc, n_trials=n_trials, engine=eng, run=run.replace(mcs=mcs),
+                   stop_on_stasis=False, async_stats=async_stats)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def steady_ms(async_stats):
+        # the set-up is the same for both lengths and drops out
+        return (wall_s(2 * window, async_stats)
+                - wall_s(window, async_stats)) / window * 1e3
+    wall_s(window, True)                                # warm-up
+    walls = {True: [], False: []}
+    for async_stats in (True, False, True, False):
+        walls[async_stats].append(steady_ms(async_stats))
+
+    p, dom = resolve_config(sc, None, eng, run)
+    p = p.validate()
+    built = engines.build(p, dom, "cuda")
+    grids, keys = trial_grids_and_keys(p, threefry.PRNGKey(0), n_trials,
+                                       "cuda")
+    chunk = build_trial_chunk(p, built, obs_mod.build_pipeline(p)
+                              if p.observables else None)
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(window // chunk_mcs):
+            grids, keys = chunk(grids, keys, chunk_mcs)[:2]
+        torch.cuda.synchronize()
+        traced_ms = (time.perf_counter() - t0) / window * 1e3
+    by_kernel = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            key = evt.key[:100]
+            by_kernel[key] = (by_kernel.get(key, 0.0)
+                              + _device_us(evt) / window / 1e3)
+    busy = sum(by_kernel.values())
+    host = engines.build(p, dom, "cpu")
+    t0 = time.perf_counter()
+    host.schedule_batch(fold_trial_keys(threefry.PRNGKey(0), n_trials),
+                        window)
+    chain_us = (time.perf_counter() - t0) / window * 1e6
+    wall = min(walls[True])
+    return {"engine": engine, "scenario": name,
+            "lattice": f"{side}x{side}", "trials": n_trials, "mcs": window,
+            "chunk_mcs": chunk_mcs, "observables": list(p.observables),
+            "host_key_chain_us_per_mcs_all_trials": chain_us,
+            "wall_ms_per_mcs_async": walls[True],
+            "wall_ms_per_mcs_sync": walls[False],
+            "wall_ms_per_mcs_per_trial": wall / n_trials,
+            "traced_chunks_ms_per_mcs": traced_ms,
+            "device_busy_ms_per_mcs": busy,
+            "device_busy_ms_per_mcs_per_trial": busy / n_trials,
+            "idle_share_of_steady_async_wall": 1.0 - busy / wall,
+            "device_ms_per_mcs_by_kernel": dict(
+                sorted(by_kernel.items(), key=lambda kv: -kv[1])[:25])}
 
 
 def _event_ms(fn, n: int) -> float:
@@ -191,7 +288,11 @@ def main(argv=None) -> int:
     ap.add_argument("--out", default=None)
     ap.add_argument("--local-kernel", default="fused",
                     choices=("fused", "pallas", "jnp"))
+    ap.add_argument("--trials", type=int, default=None,
+                    help="probe run_trials with this many trials")
     args = ap.parse_args(argv)
+    if args.trials is not None and args.engine not in TRIAL_CELLS:
+        raise SystemExit(f"--trials takes --engine in {tuple(TRIAL_CELLS)}")
     shard = {}
     if args.engine == "sharded":
         shard = dict(shard_grid=SHARD_GRID, local_kernel=args.local_kernel)
@@ -202,6 +303,9 @@ def main(argv=None) -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
+    if args.trials is not None:
+        return _emit({"card": card, "trial_window": _trial_window(
+            args.engine, args.trials)}, args.out)
     built = engines.build(
         compose(make_scenario("park3"),
                 EngineConfig(engine=args.engine, tile=TILE, **shard),
@@ -229,10 +333,14 @@ def main(argv=None) -> int:
     else:
         report.update(_batched_parts_ms())
         report["windows"] = [_window(args.engine, 1, None)]
+    return _emit(report, args.out)
+
+
+def _emit(report: dict, out) -> int:
     text = json.dumps(report)
     print(text)
-    if args.out:
-        with open(args.out, "w") as f:
+    if out:
+        with open(out, "w") as f:
             f.write(text + "\n")
     return 0
 

@@ -11,7 +11,8 @@ The kernels are held to their plain PyTorch versions (which
 across ``k_mcs`` and observables, the ``pallas`` engine to
 ``sublattice``, ``batched`` to the CPU and to S1 dropping conflicts, and
 the ``sharded`` engine on a mesh of one card's entries to its
-single-device twins.
+single-device twins; the trial forms of K1-K4 to their plain versions,
+and ``run_trials`` on the card to the CPU.
 """
 import hashlib
 import json
@@ -493,3 +494,195 @@ def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
     for name in ("densities", "interface_length"):
         np.testing.assert_array_equal(got.observables[name],
                                       want.observables[name])
+
+
+# ---------------------- the trial forms of K1-K4, one card ----------------- #
+
+def _trial_grids(dev, n, hw, species, dtype, seed=3):
+    return torch.stack([lattice.init_grid(threefry.PRNGKey(seed + t), *hw,
+                                          species, 0.1, dtype=dtype,
+                                          device=dev) for t in range(n)])
+
+
+def _trial_shifts(n, hw, dev):
+    """Per-trial shifts with 0, 1, H - 1 and W - 1 among them."""
+    h, w = hw
+    pattern = [(0, 0), (1, 1), (h - 1, w - 1), (h - 1, 0), (0, w - 1),
+               (1, w - 1), (h - 1, 1), (5, 9)]
+    return torch.tensor([pattern[t % len(pattern)] for t in range(n)],
+                        dtype=torch.int64, device=dev)
+
+
+def _trial_seeds(n, dev):
+    words = [(1, 2), (2 ** 32 - 1, 5), (7, 8), (0, 2 ** 32 - 1)]
+    return torch.tensor([words[t % 4] for t in range(n)], dtype=torch.int64,
+                        device=dev)
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("hw,tile,k,shift", ROUND_CASES[1:])
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 4)])
+def test_round_trials_kernel_equals_plain(cuda, dtype, nbhd, hw, tile, k,
+                                          shift, n):
+    """K1 over a batch of trials, one launch, against the plain K1 of each
+    trial with its own seed words and shift."""
+    grids = _trial_grids(cuda, n, hw, 5, dtype)
+    dom, dirs = _tables(5, cuda)
+    seeds, shifts = _trial_seeds(n, cuda), _trial_shifts(n, hw, cuda)
+    before = fused.LAUNCHES["escg_tile_round_fused_trials"]
+    got = fused.escg_tile_round_fused_trials(grids, seeds, shifts, dom, dirs,
+                                             tile, k, 0.25, 0.6, nbhd)
+    want = fused.escg_tile_round_fused_trials_plain(
+        grids, seeds, shifts, dom, tile, k, 0.25, 0.6, nbhd)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["escg_tile_round_fused_trials"] == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("hw,tile,k,n_steps,nbhd,species",
+                         [c[:6] for c in MEGA_CASES[1:4]])
+@pytest.mark.parametrize("dtype", [torch.int32, torch.int8])
+def test_megakernel_trials_equals_plain(cuda, dtype, hw, tile, k, n_steps,
+                                        nbhd, species, n):
+    """K2 over a batch of trials (the blocks walk (trial, group) pairs,
+    each trial its own rolls and counts) against the plain K2 of each."""
+    grids = _trial_grids(cuda, n, hw, species, dtype)
+    dom, dirs = _tables(species, cuda)
+    seeds = torch.stack([_schedule(n_steps, hw, cuda)[0].roll(t, 0)
+                         for t in range(n)])
+    shifts = torch.stack([_schedule(n_steps, hw, cuda)[1].roll(-t, 0)
+                          for t in range(n)])
+    got = fused.escg_tile_rounds_fused_trials(grids, seeds, shifts, dom,
+                                              dirs, tile, k, 0.25, 0.6,
+                                              species, nbhd)
+    want = fused.escg_tile_rounds_fused_trials_plain(
+        grids, seeds, shifts, dom, tile, k, 0.25, 0.6, species, nbhd)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0])
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("hw,tile", [((72, 56), (8, 8)),
+                                     ((72, 224), (8, 32)),
+                                     ((144, 224), (16, 32))])
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 8)])
+def test_stream_round_trials_kernel_equals_plain(cuda, dtype, nbhd, hw,
+                                                 tile, n):
+    """K3 over a batch of trials against the plain K3 of each trial rolled
+    by its shift, K = th * tw, th * tw - 7 and less than one chunk."""
+    grids = _trial_grids(cuda, n, hw, 5, dtype)
+    dom, dirs = _tables(5, cuda)
+    shifts = _trial_shifts(n, hw, cuda)
+    n_tiles = (hw[0] // tile[0]) * (hw[1] // tile[1])
+    keys = threefry.split(threefry.PRNGKey(n), n).to(cuda)
+    for k in (tile[0] * tile[1], tile[0] * tile[1] - 7,
+              escg_update.CHUNK - 3):
+        props = rng.tile_stream_batch(keys, torch.arange(n_tiles,
+                                                         device=cuda), k,
+                                      (tile[0] - 2) * (tile[1] - 2), nbhd)
+        before = escg_update.LAUNCHES["escg_tile_round_trials"]
+        got = escg_update.escg_tile_round_trials(grids, *props, dom, dirs,
+                                                 tile, 0.25, 0.6, shifts)
+        want = escg_update.escg_tile_round_trials_plain(
+            grids, *props, dom, tile, 0.25, 0.6, shifts)
+        torch.cuda.synchronize()
+        assert escg_update.LAUNCHES["escg_tile_round_trials"] == \
+            before + 1
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("n", [1, 3, 40])
+@pytest.mark.parametrize("hw", [(64, 64), (7, 9), (33, 31)])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_density_trials_equals_plain(cuda, dtype, hw, n):
+    """K4 per trial, one launch, on trials whose slices start anywhere
+    (7 x 9 int8 lattices), labels outside 0..S, S on both sides of the 16
+    register bins."""
+    for species in (3, 15, 16, 40):
+        grids = torch.randint(-2, species + 4, (n,) + hw, device=cuda,
+                              generator=torch.Generator(cuda).manual_seed(
+                                  species), dtype=torch.int32).to(dtype)
+        before = density.LAUNCHES["density_counts_trials"]
+        got = density.density_counts_trials(grids, species)
+        torch.cuda.synchronize()
+        assert density.LAUNCHES["density_counts_trials"] == before + 1
+        assert got.shape == (n, species + 1) and got.dtype == torch.int32
+        assert torch.equal(got, density.density_counts_trials_plain(
+            grids, species))
+
+
+@pytest.mark.parametrize("engine,k_mcs,kernel", [
+    ("pallas_fused", 1, "escg_tile_round_fused_trials"),
+    ("pallas_fused", 3, "escg_tile_rounds_fused_trials"),
+    ("pallas", 1, "escg_tile_round_trials"),
+    ("sublattice", 1, None), ("batched", 1, None), ("reference", 1, None)])
+def test_run_trials_on_the_card_equals_the_cpu(cuda, engine, k_mcs, kernel):
+    """``run_trials`` on the card equals the CPU's plain path, with one
+    launch per kernel and MCS for all trials, and one K4 launch per
+    count."""
+    from repro_torch.core.trials import run_trials
+
+    def run(device):
+        return run_trials(make_scenario("nspecies5", mobility=1e-3,
+                                        empty=0.1), n_trials=5,
+                          engine=EngineConfig(engine=engine, tile=(8, 8),
+                                              k_mcs=k_mcs),
+                          run=RunConfig(length=32, height=24, mcs=7,
+                                        chunk_mcs=4,
+                                        observables=("densities",
+                                                     "cluster_size")),
+                          stop_on_stasis=False, device=device)
+    ops.reset_launches()
+    on_card = run(None)
+    counted = ops.launches()
+    on_host = run("cpu")
+    assert on_card.to_json() == on_host.to_json()
+    if kernel is not None:
+        # 7 MCS in chunks of 4 and 3: with k_mcs 3, K2 runs groups of 3
+        # and 1, then one of 3
+        want = 3 if kernel == "escg_tile_rounds_fused_trials" else 7
+        assert counted[kernel] == want
+    if k_mcs == 1:
+        assert counted["density_counts_trials"] == 7 + 1
+    assert counted["density_counts"] == 0
+
+
+@pytest.mark.parametrize("engine,k_mcs,dtype", [
+    ("pallas_fused", 1, "int32"), ("pallas_fused", 1, "int8"),
+    ("pallas_fused", 3, "int32"), ("pallas", 1, "int8"),
+    ("batched", 1, "int32")])
+def test_trial_chunk_on_the_card_equals_per_trial_simulate(cuda, engine,
+                                                           k_mcs, dtype):
+    """Each of 16 trials of ``build_trial_chunk`` on the card (one launch
+    per kernel and MCS for the batch) equals ``simulate`` on the card from
+    the trial's lattice and run key: final lattice, counts and kept
+    count, over two chunks."""
+    from repro_torch.core import engines, trials
+    from repro_torch.core.scenarios import compose
+
+    scenario = make_scenario("park3")
+    p = compose(scenario, EngineConfig(engine=engine, tile=(8, 32),
+                                       k_mcs=k_mcs, cell_dtype=dtype),
+                RunConfig(length=256, height=128, mcs=6, chunk_mcs=3,
+                          observables=()))
+    dom = scenario.dominance()
+    built = engines.build(p, dom, cuda)
+    grids0, keys0 = trials.trial_grids_and_keys(
+        p, threefry.PRNGKey(p.seed), 16, cuda)
+    chunk = trials.build_trial_chunk(p, built)
+    g, keys, kept_sum = grids0, keys0, 0
+    for _ in range(2):
+        g, keys, cnt, _, kept, _ = chunk(g, keys, 3)
+        kept_sum = kept_sum + kept
+    for t in range(16):
+        s = simulate(p, dom, grid0=grids0[t], key=keys0[t],
+                     stop_on_stasis=False, device=cuda)
+        assert np.array_equal(s.grid, g[t].cpu().numpy()), t
+        assert np.array_equal(s.densities[-1],
+                              cnt[t].cpu().numpy() / p.n_cells), t
+        assert s.kept_fraction == \
+            int(kept_sum[t]) / (6 * built.attempts_per_mcs), t

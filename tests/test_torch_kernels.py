@@ -191,8 +191,9 @@ def test_wrapper_on_cpu_is_the_plain_version_and_counts_no_launch():
     back = ops.escg_round_fused(grid, (1, 2), 0, (3, 5), dom, dirs, (8, 16),
                                 30, 0.25, 0.6)
     assert torch.equal(back, torch.roll(want, (3, 5), (0, 1)))
-    assert fused.LAUNCHES == {"escg_tile_round_fused": 0,
-                              "escg_tile_rounds_fused": 0}
+    assert {"escg_tile_round_fused", "escg_tile_rounds_fused"} <= \
+        set(fused.LAUNCHES)
+    assert set(fused.LAUNCHES.values()) == {0}
 
 
 def test_wrapper_rejects_bad_input():

@@ -251,6 +251,7 @@ def test_port_imports_no_jax():
             "import repro_torch.kernels.reference_scan\n"
             "import repro_torch.core.batched, repro_torch.core.reference\n"
             "import repro_torch.core.sharded\n"
+            "import repro_torch.core.trials, repro_torch.core.park\n"
             "import repro_torch.parallel.sharding\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
