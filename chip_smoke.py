@@ -30,11 +30,12 @@ each with the launch counts set to 0 just before it and read just after:
 * park3 at 3200 x 3200 on the sequential ``reference`` engine for three
   MCS (S1 once per MCS, K4);
 * park3 at 3200 x 3200 on the domain-decomposed ``sharded`` engine over a
-  (2, 2) mesh of four ``cuda:0`` entries: ``local_kernel='fused'`` (K1
-  per block and one K4s launch per count, no ``torch.roll``) held to
-  ``pallas_fused``, again on a (1, 1) mesh with ``k_mcs`` 10 (K2);
-  ``'pallas'`` with park3's declared observables (K3 per block, K4s) held
-  to ``pallas``; and ``'jnp'`` at 256 x 256 held to ``'pallas'``.
+  (2, 2) mesh of four ``cuda:0`` entries: ``local_kernel='fused'`` (one
+  launch of K1's table form per MCS for the four blocks and one K4s launch
+  per count, no ``torch.roll``) held to ``pallas_fused``, again on a (1,
+  1) mesh with ``k_mcs`` 10 (K2); ``'pallas'`` with park3's declared
+  observables (K3's table form, K4s) held to ``pallas``; and ``'jnp'`` at
+  256 x 256 held to ``'pallas'``.
   ``density_counts_sharded`` (K4s: one grouped launch over the card's
   blocks) is held to the plain count of the whole lattice.
 * IID trials through ``trials.run_trials``, one launch per kernel and MCS
@@ -48,6 +49,19 @@ each with the launch counts set to 0 just before it and read just after:
   first trials held to the CPU; ``tests/golden/trial_result.json`` on
   ``sublattice`` and ``pallas``. The trial forms of K1-K4 are held to
   their plain versions at the staging edges with 1, 3 and 16 trials.
+* The composed pod x grid engine ``sharded_pod`` through ``run_trials``,
+  park3 at 3200 x 3200: (a) ``'fused'``, 16 trials on a (2, 2, 2) mesh of
+  eight ``cuda:0`` entries, one launch of K1's table form and one of K4s
+  per trial per MCS for all trials, no ``torch.roll``, every trial held to
+  ``pallas_fused``'s; (b) ``'fused'`` on (4, 1, 1) at ``k_mcs`` 10 (K2's
+  trial form per pod group) held to the same; (c) ``'pallas'``, 8 trials
+  with park3's observables (K3's table form) held to ``pallas``'s, rows
+  included; (d) ``'jnp'`` at 256 x 256 held to ``'pallas'``; (e) the
+  default mesh (every card on the pod axis); (f) ``simulate`` held to
+  ``sharded``; (g) the table forms of K1 and K3 and K4s per trial held to
+  their plain versions at the staging edges (1, 4 and 8 runs of 1, 3 and
+  16 trials, halos on both, one and no axes, shifts 0 and tile - 1) and
+  at (a)'s shapes.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -145,6 +159,13 @@ TR_EDGE_NS = (16, 1, 3)
 PARK_SIDE, PARK_N, PARK_MCS, PARK_CHUNK = 100, 64, 100, 50
 PARK_COUNT_MCS, PARK_CPU_N, PARK_CPU_MCS = 4, 4, 3
 TRIAL_GOLDEN = os.path.join(HERE, "tests", "golden", "trial_result.json")
+# the composed engine's runs at 3200 x 3200: 16 trials on a (2, 2, 2) mesh
+# of one card's entries for 10 MCS (fused), 8 trials for 3 MCS (pallas);
+# its table forms at the staging's edges on blocks of 240 x 224 with 1, 4
+# and 8 runs
+POD_MESH, POD_N, POD_MCS = (2, 2, 2), 16, 10
+POD_PALLAS_N, POD_PALLAS_MCS = 8, 3
+POD_EDGE_BLOCK, POD_EDGE_RUNS = (240, 224), (1, 4, 8)
 
 
 def check(cond, what):
@@ -208,13 +229,13 @@ def profiled_ms(torch, fn, n, kernel):
 
 
 def once_ms(torch, fn):
-    """ms of one call of ``fn``, synchronised (for the slow plain
-    versions)."""
+    """(ms, result) of one call of ``fn``, synchronised (for the slow
+    plain versions)."""
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    fn()
+    out = fn()
     torch.cuda.synchronize()
-    return (time.perf_counter() - t0) * 1e3
+    return (time.perf_counter() - t0) * 1e3, out
 
 
 def max_err(torch, a, b):
@@ -331,6 +352,45 @@ def main():
     def grid_on_card(side, species, dtype, seed):
         return lattice.init_grid(threefry.PRNGKey(seed), side, side, species,
                                  0.1, dtype=dtype, device=dev)
+
+    dom_park3 = park3.dominance()
+
+    def fused_trials_vs_simulate(k_mcs):
+        """``build_trial_chunk`` of TR_FUSED_N park3 trials at SIDE on
+        ``pallas_fused`` (two chunks of TR_CHUNK), each trial's final
+        lattice, counts and kept count held to ``simulate`` from its
+        lattice and run key; returns the initial lattices and keys, the
+        final counts, and ms/MCS of the batch and of one simulate."""
+        p_tr = compose(park3, EngineConfig(engine="pallas_fused", tile=TILE,
+                                           k_mcs=k_mcs),
+                       RunConfig(length=SIDE, height=SIDE, mcs=TR_MCS,
+                                 chunk_mcs=TR_CHUNK, observables=()))
+        built = engines.build(p_tr, dom_park3, dev)
+        grids0, keys0 = trials.trial_grids_and_keys(
+            p_tr, threefry.PRNGKey(p_tr.seed), TR_FUSED_N, dev)
+        chunk = trials.build_trial_chunk(p_tr, built)
+        g, kk, kept_sum = grids0, keys0, 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TR_MCS // TR_CHUNK):
+            g, kk, cnt, _, kept, _ = chunk(g, kk, TR_CHUNK)
+            kept_sum = kept_sum + kept
+        cnt_h = cnt.cpu().numpy()
+        batch_ms = (time.perf_counter() - t0) / TR_MCS * 1e3
+        stamps = []
+        for t in range(TR_FUSED_N):
+            s1 = simulate(p_tr, dom_park3, grid0=grids0[t], key=keys0[t],
+                          stop_on_stasis=False, device=dev,
+                          hooks=[lambda m, g_, c: stamps.append(
+                              time.perf_counter())] if t == 0 else ())
+            check(np.array_equal(s1.grid, g[t].cpu().numpy())
+                  and np.array_equal(s1.densities[-1],
+                                     cnt_h[t] / p_tr.n_cells)
+                  and s1.kept_fraction == 1.0
+                  and int(kept_sum[t]) == TR_MCS * built.attempts_per_mcs,
+                  f"trial {t} at k_mcs={k_mcs} differs from simulate")
+        single_ms = (stamps[1] - stamps[0]) / TR_CHUNK * 1e3
+        return grids0, keys0, cnt_h, batch_ms, single_ms
 
     # ---- 3. K1 against its plain version ----
     k1_err = 0.0
@@ -1016,7 +1076,7 @@ def main():
         lat_main.flat, 3), 100)
     k4s_device = profiled_ms(
         torch, lambda: density.density_counts_sharded(lat_main.flat, 3), 100,
-        "density_grouped_kernel")
+        "density_kernel")
     k4s_plain = event_ms(torch, lambda: density.density_counts_plain(
         lat_main.gather(), 3), 10)
     k4s_lib = event_ms(torch, lambda: torch.stack(
@@ -1070,12 +1130,13 @@ def main():
     sh_f, sh_f_ms = timed("sharded", mesh4, key="sharded_fused",
                           shard_grid=SH_GRID, local_kernel="fused")
     counted = launches["sharded_fused"]
-    check(counted["escg_tile_round_fused"] == n_blocks * SH_MCS
+    check(counted["escg_tile_round_fused_table"] == SH_MCS
+          and counted["escg_tile_round_fused"] == 0
           and counted["density_counts_sharded"] == SH_MCS + 1
           and counted["density_counts"] == 0
           and counted["escg_tile_rounds_fused"] == 0,
-          f"sharded/fused did not run K1 per block and one K4s launch per "
-          f"count: {counted}")
+          f"sharded/fused did not run one K1 table launch per MCS for the "
+          f"{n_blocks} blocks and one K4s launch per count: {counted}")
     check(rolls["sharded_fused"] == 0, f"sharded/fused rolled the lattice "
           f"outside K1 ({rolls['sharded_fused']} torch.roll calls)")
     check(same(sh_f, twin) and sh_f.grid.shape == (SIDE, SIDE)
@@ -1122,11 +1183,12 @@ def main():
                           key="sharded_pallas", shard_grid=SH_GRID,
                           local_kernel="pallas")
     counted = launches["sharded_pallas"]
-    check(counted["escg_tile_round"] == n_blocks * SH_MCS
+    check(counted["escg_tile_round_table"] == SH_MCS
+          and counted["escg_tile_round"] == 0
           and counted["density_counts_sharded"] == SH_MCS + 1
           and counted["density_counts"] == 0,
-          f"sharded/pallas did not run K3 per block and one K4s launch per "
-          f"count: {counted}")
+          f"sharded/pallas did not run one K3 table launch per MCS for the "
+          f"{n_blocks} blocks and one K4s launch per count: {counted}")
     check(rolls["sharded_pallas"] == 0, f"sharded/pallas rolled the "
           f"lattice outside K3 ({rolls['sharded_pallas']} torch.roll calls)")
     check(set(sh_p.observables) == {"densities", "interface_length"}
@@ -1268,41 +1330,13 @@ def main():
           f"{K_MCS}); k_mcs={K_MCS} equals k_mcs=1 and trial 0 of "
           f"{TR_FUSED_N} equals the single trial")
 
-    dom_park3 = park3.dominance()
     g16 = None
     for k_mcs in (1, K_MCS):
-        p_tr = compose(park3, EngineConfig(engine="pallas_fused", tile=TILE,
-                                           k_mcs=k_mcs),
-                       RunConfig(length=SIDE, height=SIDE, mcs=TR_MCS,
-                                 chunk_mcs=TR_CHUNK, observables=()))
-        built = engines.build(p_tr, dom_park3, dev)
-        grids0, keys0 = trials.trial_grids_and_keys(
-            p_tr, threefry.PRNGKey(p_tr.seed), TR_FUSED_N, dev)
-        chunk = trials.build_trial_chunk(p_tr, built)
-        g, kk, kept_sum = grids0, keys0, 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(TR_MCS // TR_CHUNK):
-            g, kk, cnt, _, kept, _ = chunk(g, kk, TR_CHUNK)
-            kept_sum = kept_sum + kept
-        cnt_h = cnt.cpu().numpy()
-        batch_ms = (time.perf_counter() - t0) / TR_MCS * 1e3
-        check(np.array_equal(cnt_h / p_tr.n_cells,
+        grids0, keys0, cnt_h, batch_ms, single_ms = \
+            fused_trials_vs_simulate(k_mcs)
+        check(np.array_equal(cnt_h / p.n_cells,
                              tr_runs[k_mcs, TR_FUSED_N].densities),
               "build_trial_chunk differs from run_trials")
-        stamps = []
-        for t in range(TR_FUSED_N):
-            s1 = simulate(p_tr, dom_park3, grid0=grids0[t], key=keys0[t],
-                          stop_on_stasis=False, device=dev,
-                          hooks=[lambda m, g_, c: stamps.append(
-                              time.perf_counter())] if t == 0 else ())
-            check(np.array_equal(s1.grid, g[t].cpu().numpy())
-                  and np.array_equal(s1.densities[-1],
-                                     cnt_h[t] / p_tr.n_cells)
-                  and s1.kept_fraction == 1.0
-                  and int(kept_sum[t]) == TR_MCS * built.attempts_per_mcs,
-                  f"trial {t} at k_mcs={k_mcs} differs from simulate")
-        single_ms = (stamps[1] - stamps[0]) / TR_CHUNK * 1e3
         print(f"[trials/fused] park3 {SIDE}x{SIDE} k_mcs={k_mcs}: "
               f"build_trial_chunk over {TR_FUSED_N} trials {batch_ms:.4f} "
               f"ms/MCS for the batch (two chunks of {TR_CHUNK}, the host key "
@@ -1326,7 +1360,7 @@ def main():
         g16[t], (1, 2), 0, dom, dirs, TILE, k, te, tem, 4, shift=(th - 1,
                                                                   tw - 1))
         for t in range(n16)], 5)
-    k1t_plain = once_ms(
+    k1t_plain, _ = once_ms(
         torch, lambda: fused.escg_tile_round_fused_trials_plain(
             g16, seeds16, shifts16, dom, TILE, k, te, tem, 4))
     seeds16k = trial_rows(seeds, n16)
@@ -1336,7 +1370,7 @@ def main():
     k2n_ms = event_ms(torch, lambda: [fused.escg_tile_rounds_fused(
         g16[t], seeds, shifts, dom, dirs, TILE, k, te, tem, 3, 4)
         for t in range(n16)], 2)
-    k2t_plain = once_ms(
+    k2t_plain, _ = once_ms(
         torch, lambda: fused.escg_tile_rounds_fused_trials_plain(
             g16, seeds16k, shifts16k, dom, TILE, k, te, tem, 3, 4))
     k4t_ms = event_ms(torch, lambda: density.density_counts_trials(g16, 3),
@@ -1472,7 +1506,7 @@ def main():
     k3n_ms = event_ms(torch, lambda: [escg_update.escg_tile_round(
         g8t[t], *(f[t] for f in props8t), dom, dirs, TILE, te, tem,
         (th - 1, tw - 1)) for t in range(TR_PALLAS_N)], 5)
-    k3t_plain = once_ms(
+    k3t_plain, _ = once_ms(
         torch, lambda: escg_update.escg_tile_round_trials_plain(
             g8t, *props8t, dom, TILE, te, tem, shifts8))
     del props8t
@@ -1588,7 +1622,380 @@ def main():
           "through run_trials on sublattice and on pallas (K3 over the 4 "
           "trials)")
 
-    # ---- 25. the kernel table ----
+    # ---- 25. [sharded_pod] the composed pod x grid mesh on one card ----
+    n_pod = POD_MESH[0] * POD_MESH[1] * POD_MESH[2]
+    pod_devs = ["cuda:0"] * n_pod
+
+    def pod_trials(n_tr, mcs, mesh_shape, local_kernel, key, observables=(),
+                   side=SIDE, k_mcs=1, engine="sharded_pod", device=None):
+        """``run_trials`` of park3 with the launch and roll counts."""
+        kw = dict(mesh_shape=mesh_shape, local_kernel=local_kernel) \
+            if engine == "sharded_pod" else {}
+        ops.reset_launches()
+        t0 = time.perf_counter()
+        with counted_rolls(torch, rolls, key):
+            r = trials.run_trials(
+                park3, n_trials=n_tr,
+                engine=EngineConfig(engine=engine, tile=TILE, k_mcs=k_mcs,
+                                    **kw),
+                run=RunConfig(length=side, height=side, mcs=mcs,
+                              chunk_mcs=mcs, observables=observables),
+                stop_on_stasis=False, device=device)
+        launches[key] = ops.launches()
+        return r, time.perf_counter() - t0
+
+    def same_trials(a, b):
+        da, db = json.loads(a.to_json()), json.loads(b.to_json())
+        da.pop("n_devices"), db.pop("n_devices")
+        return da == db
+
+    # (a) fused, 16 trials on (2, 2, 2) of eight cuda:0 entries
+    pod_f, pod_f_s = pod_trials(POD_N, POD_MCS, POD_MESH, "fused",
+                                "pod_fused", device=pod_devs)
+    pod_twin, _ = pod_trials(POD_N, POD_MCS, None, None, "pod_twin",
+                             engine="pallas_fused", device=dev)
+    counted = launches["pod_fused"]
+    check(counted["escg_tile_round_fused_table"] == POD_MCS
+          and counted["density_counts_sharded_trials"] == POD_MCS + 1
+          and sum(counted.values()) == 2 * POD_MCS + 1,
+          f"sharded_pod/fused did not run one K1 table launch and one K4s "
+          f"per-trial launch per MCS for all {POD_N} trials: {counted}")
+    check(rolls["pod_fused"] == 0, f"sharded_pod/fused rolled a lattice "
+          f"({rolls['pod_fused']} torch.roll calls)")
+    check(same_trials(pod_f, pod_twin) and pod_f.n_devices == n_pod
+          and pod_f.densities.shape == (POD_N, 4)
+          and np.abs(pod_f.densities.sum(axis=1) - 1.0).max() < 1e-12,
+          "sharded_pod/fused differs from pallas_fused's trials")
+    print(f"[sharded_pod] (a) fused park3 {SIDE}x{SIDE}, {POD_N} trials on a "
+          f"{POD_MESH} mesh of cuda:0, {POD_MCS} MCS: every trial equals "
+          f"pallas_fused's (survival, densities, stasis and extinction MCS, "
+          f"kept_fraction); launches {counted}; torch.roll calls "
+          f"{rolls['pod_fused']}; {pod_f_s:.3f}s incl. set-up; {card}")
+
+    # (b) fused on (4, 1, 1) with k_mcs=10: K2's trial form per pod group
+    pod_k, _ = pod_trials(POD_N, POD_MCS, (4, 1, 1), "fused", "pod_fused_k10",
+                          k_mcs=K_MCS, device=["cuda:0"] * 4)
+    counted = launches["pod_fused_k10"]
+    check(counted["escg_tile_rounds_fused_trials"] == 4 * (POD_MCS // K_MCS)
+          and counted["density_counts_sharded_trials"] == 1
+          and counted["escg_tile_round_fused_table"] == 0,
+          f"sharded_pod/fused (4, 1, 1) k_mcs={K_MCS} did not run K2's trial "
+          f"form once per pod group: {counted}")
+    check(same_trials(pod_k, pod_twin), f"sharded_pod/fused (4, 1, 1) "
+          f"k_mcs={K_MCS} differs from pallas_fused at k_mcs=1")
+    print(f"[sharded_pod] (b) fused on (4, 1, 1) at k_mcs={K_MCS}: equals "
+          f"(a)'s oracle; launches {counted}")
+
+    # (c) pallas, 8 trials with park3's declared observables
+    pod_p, pod_p_s = pod_trials(POD_PALLAS_N, POD_PALLAS_MCS, POD_MESH,
+                                "pallas", "pod_pallas", observables=None,
+                                device=pod_devs)
+    pod_p_twin, _ = pod_trials(POD_PALLAS_N, POD_PALLAS_MCS, None, None,
+                               "pod_pallas_twin", observables=None,
+                               engine="pallas", device=dev)
+    counted = launches["pod_pallas"]
+    check(counted["escg_tile_round_table"] == POD_PALLAS_MCS
+          and counted["density_counts_sharded_trials"] == POD_PALLAS_MCS + 1
+          and counted["escg_tile_round"] == 0
+          and counted["escg_tile_round_trials"] == 0,
+          f"sharded_pod/pallas did not run one K3 table launch per MCS: "
+          f"{counted}")
+    check(rolls["pod_pallas"] == 0, f"sharded_pod/pallas rolled a lattice "
+          f"({rolls['pod_pallas']} torch.roll calls)")
+    check(same_trials(pod_p, pod_p_twin)
+          and sorted(pod_p.observables) == ["densities", "interface_length"],
+          "sharded_pod/pallas differs from pallas's trials")
+    print(f"[sharded_pod] (c) pallas, {POD_PALLAS_N} trials, {POD_PALLAS_MCS} "
+          f"MCS with park3's observables: every trial and every densities "
+          f"and interface_length row equals pallas's; launches {counted}; "
+          f"torch.roll calls {rolls['pod_pallas']}; {pod_p_s:.3f}s incl. "
+          f"set-up")
+
+    # (d) jnp at 256 x 256, held to pallas
+    small = [pod_trials(POD_PALLAS_N, POD_PALLAS_MCS, POD_MESH, lk,
+                        f"pod_{lk}_small", observables=None, side=JNP_SIDE,
+                        device=pod_devs)[0] for lk in ("jnp", "pallas")]
+    check(same_trials(*small), "sharded_pod/jnp differs from pallas")
+    print(f"[sharded_pod] (d) jnp at {JNP_SIDE}x{JNP_SIDE}: equals pallas, "
+          f"trials and observables; launches {launches['pod_jnp_small']}")
+
+    # (e) the default mesh on one card: every visible card on the pod axis
+    pod_e, _ = pod_trials(4, 3, None, "fused", "pod_default")
+    twin_e, _ = pod_trials(4, 3, None, None, "pod_default_twin",
+                           engine="pallas_fused", device=dev)
+    check(same_trials(pod_e, twin_e) and pod_e.n_devices == 1,
+          f"sharded_pod with mesh_shape=None differs from pallas_fused "
+          f"({pod_e.n_devices} devices)")
+    print(f"[sharded_pod] (e) mesh_shape=None on one card is (1, 1, 1): "
+          f"equals pallas_fused; launches {launches['pod_default']}")
+
+    # (f) simulate on pod group 0's grid, held to sharded
+    sims = {}
+    for eng, kw, devs in (
+            ("sharded_pod", dict(mesh_shape=POD_MESH), pod_devs),
+            ("sharded", dict(shard_grid=POD_MESH[1:]),
+             ["cuda:0"] * (POD_MESH[1] * POD_MESH[2]))):
+        sims[eng] = simulate(park3, engine=EngineConfig(
+            engine=eng, tile=TILE, local_kernel="fused", **kw),
+            run=RunConfig(length=SIDE, height=SIDE, mcs=POD_MCS,
+                          chunk_mcs=POD_MCS, observables=()), device=devs)
+    check(np.array_equal(sims["sharded_pod"].grid, sims["sharded"].grid)
+          and np.array_equal(sims["sharded_pod"].densities,
+                             sims["sharded"].densities),
+          "simulate on sharded_pod differs from sharded")
+    print(f"[sharded_pod] (f) simulate(engine='sharded_pod') equals sharded "
+          f"on {POD_MESH[1:]}: final lattice and {POD_MCS + 1} density rows")
+
+    # (g) the new forms at the staging's edges, against their plain versions
+    def table_case(i, dtype, tile):
+        """Runs of (n, sh, sw) labels 0..5 with halos on the axes the case
+        gives, and each trial's shifts: 0 and tile - 1 on an axis with a
+        halo, also H - 1 and W - 1 without one."""
+        (h, w), (th, tw) = POD_EDGE_BLOCK, tile
+        n_runs, n = POD_EDGE_RUNS[i % 3], TR_EDGE_NS[(i // 3) % 3]
+        halo = ((True, True), (True, False), (False, True),
+                (False, False))[i % 4]
+        sh, sw = h + (th if halo[0] else 0), w + (tw if halo[1] else 0)
+        gen = torch.Generator(dev).manual_seed(i)
+        sources = [torch.randint(0, 6, (n, sh, sw), device=dev,
+                                 generator=gen, dtype=torch.int32).to(dtype)
+                   for _ in range(n_runs)]
+        rows = [0, th - 1, 1] + ([] if halo[0] else [h - 1])
+        cols = [0, tw - 1, 1] + ([] if halo[1] else [w - 1])
+        shifts = [torch.tensor([(rows[(r + t) % len(rows)],
+                                 cols[(r + 2 * t) % len(cols)])
+                                for t in range(n)], dtype=torch.int64,
+                               device=dev) for r in range(n_runs)]
+        return sources, shifts, n_runs, n
+
+    t1_err = t3_err = t4_err = 0.0
+    edge_cases_g = list(itertools.product(
+        (torch.int8, torch.int16, torch.int32), EDGE_TILES))
+    for i, (dtype, tile) in enumerate(edge_cases_g):
+        nbhd = (4, 8)[i % 2]
+        sources, shifts, n_runs, n = table_case(i, dtype, tile)
+        k_edge = tile[0] * tile[1] - (7 if i % 2 else 0)
+        words3 = ((0, 2 ** 32 - 1), (2 ** 32 - 1, 5), (11, 12))
+        seeds_g = [torch.tensor([words3[(r + t) % 3] for t in range(n)],
+                                dtype=torch.int64, device=dev)
+                   for r in range(n_runs)]
+        offs = [(3 * r, 2 * r + 1) for r in range(n_runs)]
+        gw = 3 * POD_EDGE_BLOCK[1] // tile[1] + 5
+        a = fused.escg_tile_round_fused_table(
+            sources, seeds_g, shifts, offs, POD_EDGE_BLOCK, dom5, dirs, tile,
+            k_edge, 0.25, 0.6, nbhd, gw)
+        b = fused.escg_tile_round_fused_table_plain(
+            sources, seeds_g, shifts, offs, POD_EDGE_BLOCK, dom5, tile,
+            k_edge, 0.25, 0.6, nbhd, gw)
+        n_block = (POD_EDGE_BLOCK[0] // tile[0]) * (POD_EDGE_BLOCK[1]
+                                                    // tile[1])
+        props_g = [rng.tile_stream_batch(
+            threefry.split(threefry.PRNGKey(60 + i + r), n).to(dev),
+            torch.arange(n_block, device=dev) + 11 * r, k_edge,
+            (tile[0] - 2) * (tile[1] - 2), nbhd) for r in range(n_runs)]
+        c = escg_update.escg_tile_round_table(
+            sources, props_g, shifts, POD_EDGE_BLOCK, dom5, dirs, tile,
+            0.25, 0.6)
+        d = escg_update.escg_tile_round_table_plain(
+            sources, props_g, shifts, POD_EDGE_BLOCK, dom5, tile, 0.25, 0.6)
+        groups_g = [sources[r:r + 2] for r in range(0, n_runs, 2)]
+        e = density.density_counts_sharded_trials(groups_g, 5)
+        f = density.density_counts_sharded_trials_plain(groups_g, 5)
+        torch.cuda.synchronize()
+        t1_err = max([t1_err] + [max_err(torch, x, y) for x, y in zip(a, b)])
+        t3_err = max([t3_err] + [max_err(torch, x, y) for x, y in zip(c, d)])
+        t4_err = max(t4_err, max_err(torch, e, f))
+    print(f"[sharded_pod] (g) K1's and K3's table forms and K4s per trial at "
+          f"{len(edge_cases_g)} edge cases (blocks of {POD_EDGE_BLOCK}; int8, "
+          f"int16, int32; tiles {EDGE_TILES}; nbhd 4, 8; {POD_EDGE_RUNS} runs "
+          f"of {TR_EDGE_NS} trials; halos on both axes, one and none; shifts "
+          f"0 and tile - 1, and H - 1, W - 1 without a halo; K = th*tw and "
+          f"th*tw - 7): max_abs_err K1 {t1_err}, K3 {t3_err}, K4s {t4_err} "
+          f"against their plain versions")
+    check(t1_err == 0.0 and t3_err == 0.0 and t4_err == 0.0,
+          f"the table forms disagree with their plain versions: K1 "
+          f"{t1_err}, K3 {t3_err}, K4s per trial {t4_err}")
+
+    # times: the batch's MCS, and each new form against the launches it
+    # replaces, its plain version and its bound, on (a)'s lattices
+    p_pod = compose(park3, EngineConfig(engine="sharded_pod", tile=TILE,
+                                        mesh_shape=POD_MESH,
+                                        local_kernel="fused"),
+                    RunConfig(length=SIDE, height=SIDE, observables=()))
+    built_pod = engines.build(p_pod, dom_park3, pod_devs)
+    batch, keys_pod = built_pod.init_batch(
+        trials.fold_trial_keys(threefry.PRNGKey(0), POD_N))
+    chunk_pod = trials.build_trial_chunk(p_pod, built_pod)
+    p_fus = p_pod.replace(engine="pallas_fused", mesh_shape=None)
+    built_fus = engines.build(p_fus, dom_park3, dev)
+    grids_fus, keys_fus = trials.trial_grids_and_keys(
+        p_fus, threefry.PRNGKey(0), POD_N, dev)
+    chunk_fus = trials.build_trial_chunk(p_fus, built_fus)
+    per_mcs = {}
+    for label, ch, state, kk in (("sharded_pod", chunk_pod, batch, keys_pod),
+                                 ("pallas_fused", chunk_fus, grids_fus,
+                                  keys_fus),
+                                 ("sharded_pod ", chunk_pod, batch,
+                                  keys_pod)):
+        ch(state, kk, 1)                                 # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ch(state, kk, POD_MCS)
+        torch.cuda.synchronize()
+        per_mcs.setdefault(label.strip(), []).append(
+            (time.perf_counter() - t0) / POD_MCS * 1e3)
+    print(f"[sharded_pod] build_trial_chunk of {POD_N} trials at "
+          f"{SIDE}x{SIDE}, {POD_MCS} MCS after a warm-up (the host key chain "
+          f"included): sharded_pod/fused on {POD_MESH} of cuda:0 "
+          f"{per_mcs['sharded_pod']} ms/MCS for the batch "
+          f"({[round(x / POD_N, 4) for x in per_mcs['sharded_pod']]} per "
+          f"trial); pallas_fused {per_mcs['pallas_fused']} "
+          f"({[round(x / POD_N, 4) for x in per_mcs['pallas_fused']]} per "
+          f"trial); {card}")
+
+    th_, tw_ = TILE
+    blocks_h, blocks_w = SIDE // POD_MESH[1], SIDE // POD_MESH[2]
+    lgh, lgw = blocks_h // th_, blocks_w // tw_
+    exts = [sharded.halo_extend(g, TILE) for g in batch.groups]
+    runs_pod = [(g, ri, ci) for g in range(POD_MESH[0])
+                for ri in range(POD_MESH[1]) for ci in range(POD_MESH[2])]
+    n_g = POD_N // POD_MESH[0]
+    srcs = [exts[g][ri][ci] for g, ri, ci in runs_pod]
+    seeds_pod = [keys_pod[g * n_g:(g + 1) * n_g].to(dev)
+                 for g, _, _ in runs_pod]
+    # each trial's own shift: tile - 1 and the ones below it on the rows,
+    # tile - 1 and 0 in turn on the columns
+    shifts_pod = [torch.tensor([[th_ - 1 - t % th_, (tw_ - 1) * (1 - t % 2)]
+                                for t in range(n_g)], dtype=torch.int64,
+                               device=dev) for _ in runs_pod]
+    offs_pod = [(ri * lgh, ci * lgw) for _, ri, ci in runs_pod]
+    blk = (blocks_h, blocks_w)
+
+    def k1_table():
+        return fused.escg_tile_round_fused_table(
+            srcs, seeds_pod, shifts_pod, offs_pod, blk, dom, dirs, TILE, k,
+            te, tem, 4, SIDE // tw_)
+
+    def k1_per_block():
+        # the launches the table replaces: K1 on each block of each trial
+        return [fused.escg_tile_round_fused(
+            batch.groups[g].blocks[ri][ci][t], (1, 2), 0, dom, dirs, TILE,
+            k, te, tem, 4, (ri * lgh, ci * lgw), SIDE // tw_)
+            for g, ri, ci in runs_pod for t in range(n_g)]
+    k1_tab_ms = event_ms(torch, k1_table, 10)
+    k1_blk_ms = event_ms(torch, k1_per_block, 3)
+    k1_tab_plain, plain_out = once_ms(
+        torch, lambda: fused.escg_tile_round_fused_table_plain(
+            srcs, seeds_pod, shifts_pod, offs_pod, blk, dom, TILE, k, te,
+            tem, 4, SIDE // tw_))
+    # the table at the main path's shapes, held to its plain version
+    pod_t1_err = max(max_err(torch, x, y)
+                     for x, y in zip(k1_table(), plain_out))
+    del plain_out
+    # each trial's window of its block is read once and written once (the
+    # halo extension is a pass of its own, timed below)
+    pod_cell_bytes = srcs[0].element_size() * SIDE * SIDE
+    k1_tab_bound, k1_tab_by = bound(
+        2 * POD_N * pod_cell_bytes
+        + sum(x.numel() * x.element_size() for x in seeds_pod + shifts_pod),
+        POD_N * updates * OPS_PER_UPDATE)
+    halo_ms = event_ms(torch, lambda: [sharded.halo_extend(g, TILE)
+                                       for g in batch.groups], 10)
+
+    n_p = POD_PALLAS_N // POD_MESH[0]
+    props_pod = [rng.tile_stream_batch(
+        keys_pod[:n_p].to(dev),
+        sharded._local_tile_ids(ri, ci, blk, TILE, SIDE // tw_, dev), k,
+        interior, 4) for _, ri, ci in runs_pod]
+    srcs_p = [x[:n_p] for x in srcs]
+    shifts_p = [x[:n_p] for x in shifts_pod]
+
+    def k3_table():
+        return escg_update.escg_tile_round_table(
+            srcs_p, props_pod, shifts_p, blk, dom, dirs, TILE, te, tem)
+
+    def k3_per_block():
+        # the launches the table replaces: K3 on each block of each trial
+        return [escg_update.escg_tile_round(
+            batch.groups[g].blocks[ri][ci][t],
+            *(fld[t] for fld in props_pod[r]), dom, dirs, TILE, te, tem)
+            for r, (g, ri, ci) in enumerate(runs_pod) for t in range(n_p)]
+    k3_tab_ms = event_ms(torch, k3_table, 10)
+    k3_blk_ms = event_ms(torch, k3_per_block, 3)
+    k3_tab_plain, plain_out = once_ms(
+        torch, lambda: escg_update.escg_tile_round_table_plain(
+            srcs_p, props_pod, shifts_p, blk, dom, TILE, te, tem))
+    pod_t3_err = max(max_err(torch, x, y)
+                     for x, y in zip(k3_table(), plain_out))
+    del plain_out
+    k3_tab_bound, k3_tab_by = bound(
+        2 * POD_PALLAS_N * pod_cell_bytes + 16 * POD_PALLAS_N * updates
+        + sum(x.numel() * x.element_size() for x in shifts_p),
+        POD_PALLAS_N * updates * OPS_PER_STREAM_UPDATE)
+    del props_pod
+
+    groups_pod = [g.flat for g in batch.groups]
+    k4st_ms = event_ms(torch, lambda: density.density_counts_sharded_trials(
+        groups_pod, 3), 50)
+    k4st_device = profiled_ms(
+        torch, lambda: density.density_counts_sharded_trials(groups_pod, 3),
+        50, "density_kernel")
+    k4st_before = event_ms(torch, lambda: torch.stack([
+        density.density_counts_sharded([b[t] for b in blocks], 3)
+        for blocks in groups_pod for t in range(n_g)]), 10)
+    k4st_plain = event_ms(
+        torch, lambda: density.density_counts_sharded_trials_plain(
+            groups_pod, 3), 3)
+    pod_t4_err = max_err(
+        torch, density.density_counts_sharded_trials(groups_pod, 3),
+        density.density_counts_sharded_trials_plain(groups_pod, 3))
+    trial_off = [(g * n_g + torch.arange(n_g, device=dev))[:, None, None] * 4
+                 for g in range(POD_MESH[0])]
+
+    def k4st_library():
+        return torch.bincount(torch.cat([
+            (b.long() + trial_off[g]).reshape(-1)
+            for g, blocks in enumerate(groups_pod) for b in blocks]),
+            minlength=POD_N * 4).view(POD_N, 4)
+    check(torch.equal(k4st_library().int(),
+                      density.density_counts_sharded_trials(groups_pod, 3)),
+          "the offset bincount differs from K4s per trial")
+    k4st_lib = event_ms(torch, k4st_library, 10)
+    k4st_bound, k4st_by = bound(POD_N * pod_cell_bytes + POD_N * 4 * 4,
+                                POD_N * SIDE * SIDE * OPS_PER_COUNTED_CELL)
+    print(f"[time] K1 table over {len(runs_pod)} blocks x {n_g} trials "
+          f"({POD_MESH}, blocks {blk} with their halo): {k1_tab_ms:.4f} ms "
+          f"per launch against {k1_blk_ms:.4f} for the "
+          f"{len(runs_pod) * n_g} per-block launches it replaces; plain "
+          f"{k1_tab_plain:.1f} ms; bound {k1_tab_bound * 1e3:.1f} us by "
+          f"{k1_tab_by}, {k1_tab_bound / k1_tab_ms:.3f} of the bound's time; "
+          f"the halo extension of all blocks {halo_ms:.4f} ms; {card}")
+    print(f"[time] K3 table over {len(runs_pod)} blocks x {n_p} trials: "
+          f"{k3_tab_ms:.4f} ms per launch against {k3_blk_ms:.4f} for the "
+          f"{len(runs_pod) * n_p} per-block launches (on the blocks' "
+          f"unshifted cells); plain {k3_tab_plain:.1f} ms; bound "
+          f"{k3_tab_bound * 1e3:.1f} us by {k3_tab_by}, "
+          f"{k3_tab_bound / k3_tab_ms:.3f} of the bound's time; {card}")
+    print(f"[time] K4s per trial over {POD_N} trials in {len(runs_pod)} "
+          f"blocks: {k4st_ms:.4f} ms per launch, device time by the profiler "
+          f"{k4st_device}, against {k4st_before:.4f} for one K4s launch per "
+          f"trial; plain {k4st_plain:.3f} ms; bound "
+          f"{k4st_bound * 1e3:.1f} us by {k4st_by}; library call (one "
+          f"torch.bincount of the blocks' labels offset by t x (S+1), their "
+          f"int64 copies included) {k4st_lib:.4f} ms; {card}")
+    print(f"[sharded_pod] the table forms at the main path's shapes "
+          f"({POD_MESH}, blocks {blk} with their halo, {n_g} trials a run "
+          f"for K1 and K4s, {n_p} for K3, each trial at its own shift): "
+          f"max_abs_err K1 {pod_t1_err}, K3 {pod_t3_err}, K4s per trial "
+          f"{pod_t4_err} against their plain versions")
+    check(pod_t1_err == 0.0 and pod_t3_err == 0.0 and pod_t4_err == 0.0,
+          f"the table forms disagree with their plain versions at the main "
+          f"path's shapes: K1 {pod_t1_err}, K3 {pod_t3_err}, K4s per trial "
+          f"{pod_t4_err}")
+    t1_err, t3_err = max(t1_err, pod_t1_err), max(t3_err, pod_t3_err)
+    t4_err = max(t4_err, pod_t4_err)
+
+    # ---- 26. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,
@@ -1663,6 +2070,27 @@ def main():
          "max_abs_err": tr_k4_err, "ms": k4t_ms, "plain_ms": k4t_plain,
          "bound_ms": TR_FUSED_N * k4_bound, "bound_by": k4_by,
          "library_ms": k4t_lib},
+        {"name": "escg_tile_round_fused_table", "route": "cuda",
+         "source": src,
+         "replaces": "src/repro/kernels/escg_update_fused.py:130",
+         "launches": launches["pod_fused"]["escg_tile_round_fused_table"],
+         "max_abs_err": t1_err, "ms": k1_tab_ms, "plain_ms": k1_tab_plain,
+         "bound_ms": k1_tab_bound, "bound_by": k1_tab_by,
+         "library_ms": None},
+        {"name": "escg_tile_round_table", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/escg_update.cu",
+         "replaces": "src/repro/kernels/escg_update.py:90",
+         "launches": launches["pod_pallas"]["escg_tile_round_table"],
+         "max_abs_err": t3_err, "ms": k3_tab_ms, "plain_ms": k3_tab_plain,
+         "bound_ms": k3_tab_bound, "bound_by": k3_tab_by,
+         "library_ms": None},
+        {"name": "density_counts_sharded_trials", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/density.cu",
+         "replaces": "src/repro/kernels/density.py:60",
+         "launches": launches["pod_fused"]["density_counts_sharded_trials"],
+         "max_abs_err": t4_err, "ms": k4st_ms, "plain_ms": k4st_plain,
+         "bound_ms": k4st_bound, "bound_by": k4st_by,
+         "library_ms": k4st_lib},
     ]}))
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -6,10 +6,10 @@ arbitration in plain PyTorch), and the sublattice family: the fused-Philox
 engine ``pallas_fused`` (kernels K1, K2) and the stream-fed pair
 ``sublattice`` (plain PyTorch) and ``pallas`` (kernel K3), and the
 domain-decomposed ``sharded`` engine (``core/sharded.py``), which runs one
-of those rounds on every block of a device mesh. Only ``reference`` and
-``batched`` take reflecting boundaries. ``sharded_pod`` is named here with
-the ``ROADMAP.md`` item that ports it, and asking for it raises
-``NotImplementedError``.
+of those rounds on every block of a device mesh, and ``sharded_pod``
+(``core/sharded_pod.py``), which composes IID trials over a 'pod' mesh
+axis with that decomposition. Only ``reference`` and ``batched`` take
+reflecting boundaries.
 
 Engine contract in the port: ``build(params, dom, device) -> BuiltEngine``
 (``device`` is the tuple of mesh devices for a ``multi_device`` engine).
@@ -57,6 +57,12 @@ The single-device engines are ``vmappable``: the trial driver
 * ``multi_mcs_batch(grids, seeds (n, K, 2), shifts (n, K, 2)) -> (grids,
   counts (n, K, S+1))``: K2 over the trials (``pallas_fused``);
 * ``counts_batch(grids, species) -> (n, S+1) int32``: K4 per trial.
+
+``sharded_pod`` is not vmappable but ``pod_composable``: its trial batch
+is a ``sharded_pod.PodBatch`` over the engine's ('pod', 'rows', 'cols')
+mesh, made from the trials' keys by ``init_batch``, padded to
+``pod_width`` trials, and advanced by the same batch functions (K1's or
+K3's table form and K4s per trial).
 """
 from __future__ import annotations
 
@@ -111,6 +117,13 @@ class BuiltEngine(NamedTuple):
                                        Tuple[torch.Tensor,
                                              torch.Tensor]]] = None
     counts_batch: Callable[[torch.Tensor, int], torch.Tensor] = _trial_counts
+    # the composed pod x grid mesh (sharded_pod): the trials per launch
+    # unit come in multiples of pod_width, init_batch(trial keys (n, 2)) ->
+    # (the batch on the mesh, run keys (n, 2) on the host), and the mesh
+    pod_width: int = 1
+    init_batch: Optional[Callable[[torch.Tensor],
+                                  Tuple[Any, torch.Tensor]]] = None
+    mesh: Any = None
 
 
 @dataclass(frozen=True)
@@ -162,11 +175,8 @@ class EngineSpec:
 _REGISTRY: Dict[str, EngineSpec] = {}
 
 # engines of the reference that this port does not run yet, with the
-# ROADMAP.md item that ports each
-NOT_PORTED = {
-    "sharded_pod": "Queue 1, item 2 (the composed pod x grid mesh, the "
-                   "slice after the trial driver)",
-}
+# ROADMAP.md item that ports each (none: every engine is ported)
+NOT_PORTED: Dict[str, str] = {}
 
 
 def register(name: str, caps: EngineCaps):
@@ -231,12 +241,19 @@ def validate_params(p: "EscgParams") -> None:
         if name not in observable_names():
             raise ValueError(f"unknown observable {name!r}; known: "
                              f"{observable_names()}")
-    if p.mesh_shape is not None and "pod" not in spec.caps.mesh_axes:
-        raise ValueError(
-            f"engine {p.engine!r} does not lay devices on a "
-            f"('pod','rows','cols') mesh (mesh_axes={spec.caps.mesh_axes}); "
-            "mesh_shape only applies to pod-composable engines like "
-            "'sharded_pod'")
+    if p.mesh_shape is not None:
+        if not spec.caps.pod_composable:
+            raise ValueError(
+                f"engine {p.engine!r} does not lay devices on a "
+                f"('pod','rows','cols') mesh (mesh_axes="
+                f"{spec.caps.mesh_axes}); mesh_shape only applies to "
+                "pod-composable engines like 'sharded_pod'")
+        if len(p.mesh_shape) != len(spec.caps.mesh_axes):
+            raise ValueError(
+                f"mesh_shape {p.mesh_shape} must have one entry per mesh "
+                f"axis {spec.caps.mesh_axes}")
+        if any(d < 1 for d in p.mesh_shape):
+            raise ValueError("mesh_shape dims must be >= 1")
 
 
 def build(params, dom=None, device: Optional[Devices] = None
@@ -585,3 +602,18 @@ def _build_sharded(p: "EscgParams", dom: torch.Tensor,
     'jnp'), and the counts from ``density_counts_sharded``."""
     from . import sharded as sharded_mod  # sharded imports this module
     return sharded_mod.build_engine(p, dom, devices)
+
+
+@register("sharded_pod", EngineCaps(
+    flux_only=True, tiled=True, multi_device=True, vmappable=False,
+    trial_shardable=False, mesh_axes=("pod", "rows", "cols"),
+    local_kernels=("jnp", "pallas", "fused"), multi_mcs=True,
+    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),)))
+def _build_sharded_pod(p: "EscgParams", dom: torch.Tensor,
+                       devices: Tuple[torch.device, ...]) -> BuiltEngine:
+    """IID trials over a ('pod', 'rows', 'cols') mesh, each trial's
+    lattice decomposed over its pod group's ('rows', 'cols') mesh: K1's or
+    K3's table form over every block of every trial of a device, K4s per
+    trial; ``simulate`` runs ``sharded`` on pod group 0's grid."""
+    from . import sharded_pod as pod_mod  # it imports this module
+    return pod_mod.build_engine(p, dom, devices)

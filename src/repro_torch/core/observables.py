@@ -22,12 +22,13 @@ Registry contract (``@register_observable``):
   *lag-held*: the rows of a launch group repeat the value taken at the
   group's start;
 * ``block``/``finish``: how a grid-derived observable reads a lattice
-  decomposed over a device mesh (the ``sharded`` engine), no device
-  holding all of it: ``block(view, params)`` is the integer partial of
-  one block (a :class:`BlockView`), the partials are summed on the mesh's
-  first device, and ``finish(total, params)`` makes the row's slice, equal
-  to ``compute`` of the gathered lattice. An observable without them is
-  computed on the gathered lattice.
+  decomposed over a device mesh (the ``sharded`` and ``sharded_pod``
+  engines), no device holding all of it: ``block(view, params)`` is the
+  integer partial of one block (a :class:`BlockView`; with a leading
+  trial axis for a decomposed trial batch), the partials are summed on the
+  mesh's first device, and ``finish(total, params)`` makes the row's
+  slice, equal to ``compute`` of the gathered lattice. An observable
+  without them is computed on the gathered lattice.
 
 The ring is a ``(capacity, width)`` float32 tensor on the device, written
 at slot ``pos % capacity``; ``pos`` counts every row ever pushed and is a
@@ -40,7 +41,10 @@ the counts).
 A batch of IID trials is n lattices stacked as one (n, H, W) tensor:
 ``compute`` takes it whole (every built-in observable reads the last two
 dims), a row of the batch is (n, width), equal to the trials' rows
-stacked, and the trial driver's ring is ``(capacity, n, width)``.
+stacked, and the trial driver's ring is ``(capacity, n, width)``. A batch
+decomposed over a mesh (blocks of (n, bh, bw)) gives the same (n, width)
+rows from its blocks' partials, and a batch over several pod groups
+(an object with ``groups``, each such a batch) its groups' rows in turn.
 """
 from __future__ import annotations
 
@@ -76,10 +80,11 @@ class ObservableSpec:
 
 
 class BlockView(NamedTuple):
-    """One block of a lattice decomposed over a device mesh: its cells,
-    the global (row, col) of its first cell, and the first column of its
-    right neighbour block, (h, 1), and the first row of its lower
-    neighbour block, (1, w), on the torus, on the block's device."""
+    """One block of a lattice (or of a trial batch, with a leading trial
+    axis) decomposed over a device mesh: its cells, the global (row, col)
+    of its first cell, and the first column of its right neighbour block,
+    (..., h, 1), and the first row of its lower neighbour block, (..., 1,
+    w), on the torus, on the block's device."""
     cells: torch.Tensor
     offset: Tuple[int, int]
     right: torch.Tensor
@@ -161,17 +166,26 @@ class ObsPipeline:
 
     def grid_values(self, grid) -> Dict[str, torch.Tensor]:
         """The grid-derived slices of an (H, W) lattice (each (w,)) or of
-        an (n, H, W) trial batch (each (n, w)), or of a lattice decomposed
-        over a mesh (an object with ``views()``, ``gather()`` and
-        ``device``, such as ``sharded.ShardedLattice``), on the lattice's
-        (first) device; count-derived specs are left out. Taken at a
-        launch-group boundary, they are what ``k_mcs > 1`` holds."""
+        an (n, H, W) trial batch (each (n, w)), or of a lattice or trial
+        batch decomposed over a mesh (an object with ``views()``,
+        ``gather()``, ``lead`` and ``device``, such as
+        ``sharded.ShardedLattice``), or of the pod groups of a decomposed
+        batch (an object with ``groups`` and ``device``, their rows in
+        turn), on the lattice's (first) device; count-derived specs are
+        left out. Taken at a launch-group boundary, they are what ``k_mcs >
+        1`` holds."""
         p = self._params
         specs = [s for s in self.specs if not s.from_counts]
         if isinstance(grid, torch.Tensor):
             lead = tuple(grid.shape[:-2])
             return {s.name: _f32(s.compute(grid, None, p)).reshape(
                 lead + (-1,)) for s in specs}
+        groups = getattr(grid, "groups", None)
+        if groups is not None:
+            parts = [self.grid_values(g) for g in groups]
+            return {s.name: torch.cat([v[s.name].to(grid.device)
+                                       for v in parts]) for s in specs}
+        lead = grid.lead
         out, views, whole = {}, None, None
         for s in specs:
             if s.block is None:
@@ -182,7 +196,7 @@ class ObsPipeline:
                 views = grid.views() if views is None else views
                 total = sum(s.block(v, p).to(grid.device) for v in views)
                 value = s.finish(total, p)
-            out[s.name] = _f32(value).reshape(-1)
+            out[s.name] = _f32(value).reshape(lead + (-1,))
         return out
 
     def row_held(self, counts: torch.Tensor,
@@ -364,18 +378,19 @@ def _snap_segments(start: int, length: int, size: int, count: int):
 
 
 def _snap_block(v: BlockView, p) -> torch.Tensor:
-    """The (gh, gw, S+1) label histogram of the coarse cells, over one
+    """The (..., gh, gw, S+1) label histogram of the coarse cells, over one
     block's cells (a coarse cell may span several blocks)."""
     gh, gw = _snap_shape(p)
-    h, w = v.cells.shape
+    h, w = v.cells.shape[-2:]
+    lead = tuple(v.cells.shape[:-2])
     labels = torch.arange(p.species + 1, device=v.cells.device)
-    hist = torch.zeros((gh, gw, p.species + 1), dtype=torch.int64,
+    hist = torch.zeros(lead + (gh, gw, p.species + 1), dtype=torch.int64,
                        device=v.cells.device)
     for cr, r0, r1 in _snap_segments(v.offset[0], h, p.height // gh, gh):
         for cc, c0, c1 in _snap_segments(v.offset[1], w, p.length // gw,
                                          gw):
-            hist[cr, cc] = (v.cells[r0:r1, c0:c1, None] == labels).sum(
-                dim=(0, 1))
+            hist[..., cr, cc, :] = (v.cells[..., r0:r1, c0:c1, None]
+                                    == labels).sum(dim=(-3, -2))
     return hist
 
 

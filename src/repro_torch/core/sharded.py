@@ -2,21 +2,29 @@
 ``repro.core.sharded``, DESIGN.md §5).
 
 The lattice is split into the mesh's R x C contiguous blocks, block (ri,
-ci) on ``mesh.devices[ri][ci]`` (:class:`ShardedLattice`). One round:
+ci) on ``mesh.devices[ri][ci]`` (:class:`ShardedLattice`); a batch of
+trials is split the same way, each block holding its cells of every trial
+as an (n, bh, bw) tensor. One round:
 
-1. **halo copies**: the round's torus shift (dy, dx) in [0, th) x [0, tw)
-   moves every block's window by a slab of at most ``th`` rows (``tw``
-   columns) of the next block on that mesh axis (:func:`halo_roll`, rows
-   first, then columns). O(halo x perimeter) bytes cross between blocks,
-   never the whole lattice. Along an axis of one block the shift is a
-   torus roll of the block itself, which K1 and K3 fuse into their tile
-   load;
-2. **local update**: every block runs the round on the tiles it owns,
-   keyed by global tile id: K1 with ``tile_offset`` and ``grid_tiles_w``
-   for ``local_kernel='fused'``; ``tile_stream_batch`` of the owned tile
-   ids, then K3, for ``'pallas'``; the plain sweep for ``'jnp'``.
-   Proposals stay inside tile interiors and blocks are unions of tiles,
-   so no block writes another block's cells;
+1. **halo**: the round's torus shift (dy, dx) in [0, th) x [0, tw) moves
+   every block's window by at most ``th`` rows (``tw`` columns) into the
+   next block on that mesh axis. Each block is extended once per round by
+   a halo shaped by the tile, not by the shift (:func:`halo_extend`): the
+   first ``th`` rows of the block below, the first ``tw`` columns of the
+   block to the right and the corner of the diagonal one, the reference's
+   static ``halo`` slabs of ``halo_roll``. O(halo x perimeter) bytes cross
+   between blocks, never the whole lattice. An axis of one block has no
+   halo: the shift is a torus roll of the block itself;
+2. **local update**: every block of every trial runs the round on its
+   window of the extended block at that trial's shift, keyed by global
+   tile id (:func:`make_local_round_batch`): K1's table form with each
+   block's ``tile_offset`` and the global ``grid_tiles_w`` for
+   ``local_kernel='fused'``; ``tile_stream_batch`` of the owned tile ids,
+   then K3's table form, for ``'pallas'``; the plain sweep of each trial's
+   window for ``'jnp'``. The kernels read the window inside their tile
+   load, so one launch per device covers every block of every trial.
+   Proposals stay inside tile interiors and blocks are unions of tiles, so
+   no block writes another block's cells;
 3. the shift is accumulated, not rolled back, as on the single-device
    engines, so the gathered lattice is in their frame.
 
@@ -33,7 +41,9 @@ order; a copy between two devices is ordered on both devices' current
 streams by PyTorch, and the gather and the count sum copy to the mesh's
 first device the same way. Mesh entries may repeat a device (four
 ``cuda:0`` entries run the whole decomposition on one card); the code is
-the same when they differ.
+the same when they differ. :func:`halo_roll` and :func:`shard_shift2d`
+are the reference's shift by slab copies, which the explicit-proposal
+round (:func:`sharded_run_round`) uses.
 """
 from __future__ import annotations
 
@@ -43,7 +53,8 @@ import torch
 
 from ..kernels import ops as kernel_ops
 from ..kernels.density import density_counts_sharded
-from ..kernels.escg_update_fused import check_counter_capacity
+from ..kernels.escg_update_fused import (MAX_RUNS, check_counter_capacity,
+                                         halo_windows)
 from ..parallel.sharding import LatticeMesh, lattice_mesh
 from . import engines, sublattice, threefry
 from .lattice import DIRS
@@ -51,16 +62,18 @@ from .observables import BlockView
 from .rng import ProposalBatch, round_shift, tile_stream_batch
 
 __all__ = ["ShardedLattice", "place", "halo_roll", "shard_shift2d",
-           "round_stream_inputs", "make_local_round",
-           "make_local_multi_round", "sharded_counts", "build_engine",
-           "sharded_run_round", "make_sharded_simulation"]
+           "halo_extend", "round_stream_inputs", "make_local_round_batch",
+           "make_local_round", "make_local_multi_round", "sharded_counts",
+           "build_engine", "sharded_run_round", "make_sharded_simulation"]
 
 Blocks = Tuple[Tuple[torch.Tensor, ...], ...]
 
 
 class ShardedLattice(NamedTuple):
-    """An (H, W) lattice split into its mesh's R x C contiguous blocks of
-    equal shape, ``blocks[ri][ci]`` on ``mesh.devices[ri][ci]``."""
+    """An (H, W) lattice, or an (n, H, W) batch of trials, split into its
+    mesh's R x C contiguous blocks of equal shape, ``blocks[ri][ci]`` on
+    ``mesh.devices[ri][ci]``: each block is (bh, bw), or (n, bh, bw) with
+    its cells of every trial."""
     mesh: LatticeMesh
     blocks: Blocks
 
@@ -74,42 +87,49 @@ class ShardedLattice(NamedTuple):
         return self.mesh.first
 
     @property
+    def lead(self) -> Tuple[int, ...]:
+        """The leading dims of every block: () or (n,)."""
+        return tuple(self.blocks[0][0].shape[:-2])
+
+    @property
     def shape(self) -> Tuple[int, int]:
-        return (sum(row[0].shape[0] for row in self.blocks),
-                sum(b.shape[1] for b in self.blocks[0]))
+        return (sum(row[0].shape[-2] for row in self.blocks),
+                sum(b.shape[-1] for b in self.blocks[0]))
 
     def gather(self) -> torch.Tensor:
-        """The whole (H, W) lattice on the mesh's first device."""
+        """The whole (..., H, W) lattice on the mesh's first device."""
         first = self.mesh.first
-        return torch.cat([torch.cat([b.to(first) for b in row], dim=1)
-                          for row in self.blocks], dim=0)
+        return torch.cat([torch.cat([b.to(first) for b in row], dim=-1)
+                          for row in self.blocks], dim=-2)
 
     def views(self) -> List[BlockView]:
         """Each block with its global offset and the one-cell halo the
         bond observables read: the first column of its right neighbour
-        and the first row of its lower neighbour on the torus, copied to
-        the block's device."""
+        and the first row of its lower neighbour on the torus (of every
+        trial), copied to the block's device."""
         dr, dc = self.mesh.shape
-        bh, bw = self.blocks[0][0].shape
+        bh, bw = self.blocks[0][0].shape[-2:]
         return [BlockView(b, (ri * bh, ci * bw),
-                          self.blocks[ri][(ci + 1) % dc][:, :1].to(b.device),
-                          self.blocks[(ri + 1) % dr][ci][:1].to(b.device))
+                          self.blocks[ri][(ci + 1) % dc][..., :, :1]
+                          .to(b.device),
+                          self.blocks[(ri + 1) % dr][ci][..., :1, :]
+                          .to(b.device))
                 for ri, row in enumerate(self.blocks)
                 for ci, b in enumerate(row)]
 
 
 def place(grid: torch.Tensor, mesh: LatticeMesh) -> ShardedLattice:
-    """Split an (H, W) lattice into the mesh's contiguous blocks, each
-    on its device (the counterpart of ``jax.device_put`` onto
-    ``P('rows', 'cols')``)."""
-    h, w = grid.shape
+    """Split an (..., H, W) lattice or trial batch into the mesh's
+    contiguous blocks, each on its device (the counterpart of
+    ``jax.device_put`` onto ``P('rows', 'cols')``)."""
+    h, w = grid.shape[-2:]
     dr, dc = mesh.shape
     if h % dr or w % dc:
         raise ValueError(f"a {dr}x{dc} mesh does not split a {h}x{w} "
                          "lattice into equal blocks")
     bh, bw = h // dr, w // dc
     return ShardedLattice(mesh, tuple(
-        tuple(grid[ri * bh:(ri + 1) * bh, ci * bw:(ci + 1) * bw]
+        tuple(grid[..., ri * bh:(ri + 1) * bh, ci * bw:(ci + 1) * bw]
               .to(mesh.devices[ri][ci]).contiguous() for ci in range(dc))
         for ri in range(dr)))
 
@@ -193,20 +213,39 @@ def shard_shift2d(lattice: ShardedLattice, shift: Sequence[int],
                           _roll_cols(blocks, int(shift[1]), tw, reverse))
 
 
-def _halo_window(lattice: ShardedLattice, shift: Sequence[int],
-                 tile_shape: Tuple[int, int]):
-    """The round's windows: the shift along each mesh axis of more than
-    one block by halo copies (rows first), and what is left, the shift
-    along an axis of one block (a torus roll of the block itself), for
-    the update to fuse into its tile load. Rolls of the torus commute, so
-    this is ``shard_shift2d``'s result with that roll still to come."""
-    (dy, dx), (dr, dc), (th, tw) = shift, lattice.mesh.shape, tile_shape
+def halo_extend(lattice: ShardedLattice,
+                tile_shape: Tuple[int, int]) -> Blocks:
+    """Every block extended by its halo, on the block's device: on a mesh
+    axis of more than one block, the first ``th`` rows of the block below
+    (the first ``tw`` columns of the block to the right), and with both
+    the corner of the diagonal block, so (..., bh + th, bw + tw) on an R
+    x C mesh with R, C > 1. An axis of one block gets no halo, and a (1, 1)
+    mesh's block is returned as it is. The window of an extended block at
+    a shift (dy, dx) in [0, th) x [0, tw), rows and columns wrapped on an
+    axis without a halo, is the block of the lattice rolled by (-dy, -dx),
+    the reference's ``shard_shift2d``: rolls of the torus commute."""
+    (dr, dc), (th, tw) = lattice.mesh.shape, tile_shape
     blocks = lattice.blocks
-    if dr > 1:
-        blocks = _roll_rows(blocks, int(dy), th)
-    if dc > 1:
-        blocks = _roll_cols(blocks, int(dx), tw)
-    return blocks, (0 if dr > 1 else int(dy), 0 if dc > 1 else int(dx))
+    if dr == dc == 1:
+        return blocks
+    bh, bw = blocks[0][0].shape[-2:]
+    out = []
+    for ri, row in enumerate(blocks):
+        new_row = []
+        for ci, b in enumerate(row):
+            ext = b.new_empty(b.shape[:-2] + (bh + (th if dr > 1 else 0),
+                                              bw + (tw if dc > 1 else 0)))
+            ext[..., :bh, :bw] = b
+            if dc > 1:
+                ext[..., :bh, bw:] = blocks[ri][(ci + 1) % dc][..., :, :tw]
+            if dr > 1:
+                ext[..., bh:, :bw] = blocks[(ri + 1) % dr][ci][..., :th, :]
+            if dr > 1 and dc > 1:
+                ext[..., bh:, bw:] = \
+                    blocks[(ri + 1) % dr][(ci + 1) % dc][..., :th, :tw]
+            new_row.append(ext)
+        out.append(tuple(new_row))
+    return tuple(out)
 
 
 # ------------------------------ local round ------------------------------- #
@@ -226,17 +265,15 @@ def _local_tile_ids(ri: int, ci: int, block_shape: Tuple[int, int],
 def _update_tiles(local: torch.Tensor, props: ProposalBatch,
                   tile_shape: Tuple[int, int], t_eps: float,
                   t_eps_mu: float, dom: torch.Tensor, dirs: torch.Tensor,
-                  local_kernel: str = "jnp",
-                  shift: Tuple[int, int] = (0, 0)) -> torch.Tensor:
+                  local_kernel: str = "jnp") -> torch.Tensor:
     """The stream-fed sweep of one block, its proposals in the block's
-    raster tile order, over the block rolled by ``-shift``: K3 for
-    ``'pallas'`` (the roll fused into its load), the plain sweep of
+    raster tile order: K3 for ``'pallas'``, the plain sweep of
     ``sublattice.run_round`` for ``'jnp'``. The two are bit-identical."""
     if local_kernel == "pallas":
-        return kernel_ops.escg_round(local, props, shift, dom, dirs,
+        return kernel_ops.escg_round(local, props, (0, 0), dom, dirs,
                                      tile_shape, t_eps, t_eps_mu,
                                      roll_back=False)
-    return sublattice.run_round(local, props, shift, tile_shape, t_eps,
+    return sublattice.run_round(local, props, (0, 0), tile_shape, t_eps,
                                 t_eps_mu, dom, roll_back=False)
 
 
@@ -257,57 +294,104 @@ def round_stream_inputs(p, key: torch.Tensor, th: int, tw: int):
     return engines.tiled_round_inputs(key, th, tw)
 
 
-def make_local_round(p, dom: torch.Tensor, mesh: LatticeMesh):
-    """``local_round(lattice, stream, shift) -> lattice``: one round of
-    every block, the halo copies, then each block's update (module
-    docstring). ``stream`` and ``shift`` are host integers from
-    :func:`round_stream_inputs`. The one per-block round of the engine
-    and of its multi-MCS form."""
+def make_local_round_batch(p, dom: torch.Tensor,
+                           meshes: Sequence[LatticeMesh]):
+    """``local_round(lattices, words, shifts) -> lattices``: one round of
+    every block of every trial of the lattices ``lattices[g]`` (a trial
+    batch of n lattices on ``meshes[g]``, one per pod group; all meshes
+    of one shape). ``words`` and ``shifts`` are (G * n, 2) int64 on the
+    first mesh's first device, group after group, from
+    :func:`round_stream_inputs` of each trial's key. Every block is
+    extended by its halo (:func:`halo_extend`) and read at each trial's
+    own shift by the update: on each device, one launch of K1's table
+    form (``'fused'``) or of K3's after the blocks' draws (``'pallas'``)
+    for its blocks of every group, up to ``MAX_RUNS`` a launch, or the
+    plain sweep of each trial's window (``'jnp'``)."""
     t_eps, t_eps_mu = p.action_thresholds()
     th, tw, n_tiles, k_per, interior = engines._tiled_setup(p)
     gw = p.length // tw
-    dr, dc = mesh.shape
-    lgh, lgw = p.height // dr // th, p.length // dc // tw
-    tables = _tables(dom, mesh)
-
+    dr, dc = meshes[0].shape
+    bh, bw = p.height // dr, p.length // dc
+    lgh, lgw = bh // th, bw // tw
+    tables = {}
+    for m in meshes:
+        tables.update(_tables(dom, m))
+    # device -> its (group, ri, ci) blocks, in mesh order
+    by_device = {}
+    for g, m in enumerate(meshes):
+        for ri, row in enumerate(m.devices):
+            for ci, d in enumerate(row):
+                by_device.setdefault(d, []).append((g, ri, ci))
     if p.local_kernel == "fused":
         check_counter_capacity(n_tiles, k_per)
+    else:
+        tids = {(ri, ci, d): _local_tile_ids(ri, ci, (bh, bw), (th, tw), gw,
+                                             d)
+                for d, items in by_device.items() for _, ri, ci in items}
 
-        def update(ri, ci, gl, seed, kshift):
-            dom_d, dirs_d = tables[gl.device]
-            return kernel_ops.escg_round_fused(
-                gl, seed, 0, kshift, dom_d, dirs_d, (th, tw), k_per, t_eps,
-                t_eps_mu, p.neighbourhood, roll_back=False,
-                tile_offset=(ri * lgh, ci * lgw), grid_tiles_w=gw)
+    def update(runs, sources, words, shifts, d):
+        dom_d, dirs_d = tables[d]
+        if p.local_kernel == "fused":
+            return kernel_ops.escg_round_fused_table(
+                sources, words, shifts,
+                [(ri * lgh, ci * lgw) for _, ri, ci in runs], (bh, bw),
+                dom_d, dirs_d, (th, tw), k_per, t_eps, t_eps_mu,
+                p.neighbourhood, gw)
+        props = [tile_stream_batch(w, tids[ri, ci, d], k_per, interior,
+                                   p.neighbourhood)
+                 for w, (_, ri, ci) in zip(words, runs)]
+        if p.local_kernel == "pallas":
+            return kernel_ops.escg_round_table(
+                sources, props, shifts, (bh, bw), dom_d, dirs_d, (th, tw),
+                t_eps, t_eps_mu)
+        return [sublattice.run_round_trials(
+            halo_windows(src, sh, (bh, bw)), pr, torch.zeros_like(sh),
+            (th, tw), t_eps, t_eps_mu, dom_d)
+            for src, pr, sh in zip(sources, props, shifts)]
 
-        def local_round(lattice, seed, shift):
-            blocks, kshift = _halo_window(lattice, shift, (th, tw))
-            return ShardedLattice(mesh, tuple(
-                tuple(update(ri, ci, gl, seed, kshift)
-                      for ci, gl in enumerate(row))
-                for ri, row in enumerate(blocks)))
-        return local_round
+    def local_round(lattices, words, shifts):
+        n = words.shape[0] // len(lattices)
+        sources = [halo_extend(lat, (th, tw)) for lat in lattices]
+        sched = {}
 
-    tids = [[_local_tile_ids(ri, ci, (p.height // dr, p.length // dc),
-                             (th, tw), gw, mesh.devices[ri][ci])
-             for ci in range(dc)] for ri in range(dr)]
+        def on(g, d):
+            """Group g's words and shifts on device d, copied once."""
+            if (g, d) not in sched:
+                rows = slice(g * n, (g + 1) * n)
+                sched[g, d] = (words[rows].to(d), shifts[rows].to(d))
+            return sched[g, d]
+
+        out = [[[None] * dc for _ in range(dr)] for _ in lattices]
+        for d, items in by_device.items():
+            for c in range(0, len(items), MAX_RUNS):
+                runs = items[c:c + MAX_RUNS]
+                new = update(runs, [sources[g][ri][ci] for g, ri, ci in runs],
+                             [on(g, d)[0] for g, _, _ in runs],
+                             [on(g, d)[1] for g, _, _ in runs], d)
+                for (g, ri, ci), block in zip(runs, new):
+                    out[g][ri][ci] = block
+        return [ShardedLattice(m, tuple(tuple(row) for row in o))
+                for m, o in zip(meshes, out)]
+    return local_round
+
+
+def make_local_round(p, dom: torch.Tensor, mesh: LatticeMesh):
+    """``local_round(lattice, stream, shift) -> lattice``: one round of
+    every block of one lattice, :func:`make_local_round_batch` over a
+    batch of one trial. ``stream`` and ``shift`` are host integers from
+    :func:`round_stream_inputs`, copied to the mesh's first device in one
+    copy. The one per-block round of the engine and of its multi-MCS
+    form."""
+    batch = make_local_round_batch(p, dom, (mesh,))
 
     def local_round(lattice, words, shift):
-        blocks, kshift = _halo_window(lattice, shift, (th, tw))
-        kp = torch.tensor(words, dtype=torch.int64)
-        keys = {d: kp.to(d) for d in set(mesh.flat)}
-        out = []
-        for ri, row in enumerate(blocks):
-            new_row = []
-            for ci, gl in enumerate(row):
-                props = tile_stream_batch(keys[gl.device], tids[ri][ci],
-                                          k_per, interior, p.neighbourhood)
-                dom_d, dirs_d = tables[gl.device]
-                new_row.append(_update_tiles(gl, props, (th, tw), t_eps,
-                                             t_eps_mu, dom_d, dirs_d,
-                                             p.local_kernel, kshift))
-            out.append(tuple(new_row))
-        return ShardedLattice(mesh, tuple(out))
+        sched = torch.tensor([words, shift], dtype=torch.int64).to(
+            mesh.first)
+        one = ShardedLattice(mesh, tuple(tuple(b[None] for b in row)
+                                         for row in lattice.blocks))
+        (out,) = batch([one], sched[0:1], sched[1:2])
+        return ShardedLattice(mesh, tuple(tuple(b[0] for b in row)
+                                          for row in out.blocks))
     return local_round
 
 

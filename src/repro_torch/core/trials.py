@@ -7,7 +7,11 @@ shards that axis over its devices (the *pod* axis). Here the trials of a
 device are n lattices stacked as one (n, H, W) tensor, and every MCS of a
 device is one launch per kernel for all of them (``engines.BuiltEngine``'s
 ``one_mcs_batch``/``multi_mcs_batch`` and K4 per trial); the devices of the
-pod each run a contiguous slice of the trials.
+pod each run a contiguous slice of the trials. The composed engine
+``sharded_pod`` owns its ('pod', 'rows', 'cols') mesh: the whole batch
+is one unit of the trial driver, each trial born on its pod group and
+placed into its group's blocks (``BuiltEngine.init_batch``), one launch
+per device and kernel for every block of every trial.
 
 Invariants, as in the reference (``tests/test_torch_trials.py``):
 
@@ -16,8 +20,9 @@ Invariants, as in the reference (``tests/test_torch_trials.py``):
   count, the padding or the device layout, and a prefix of a larger run
   equals the smaller run. Its lattice is drawn from ``kg`` and its run
   key is ``kr`` of ``kg, kr = split(fold_in(key, t))``.
-* **Padding.** ``n_trials`` is padded to a multiple of the device count;
-  padded trials run and are dropped from every statistic on the host.
+* **Padding.** ``n_trials`` is padded to a multiple of the device count
+  (of the pod width for ``sharded_pod``); padded trials run and are
+  dropped from every statistic on the host.
 * **Chunked streaming.** A chunk of MCS runs on the devices without a host
   decision: its key chain of every trial is computed on the host at once
   with the batched threefry (``schedule_batch``) and copied to the device
@@ -213,7 +218,7 @@ def build_trial_chunk(p: EscgParams, built: engines.BuiltEngine,
     def chunk(grids, keys, n_mcs: int):
         if n_mcs < 1:
             raise ValueError(f"a chunk runs at least one MCS, got {n_mcs}")
-        n = grids.shape[0]
+        n = keys.shape[0]
         keys, words, shifts = built.schedule_batch(keys, n_mcs)
         sched = torch.stack([words, shifts]).to(built.device)
         att = torch.full((n,), n_mcs * built.attempts_per_mcs,
@@ -292,18 +297,21 @@ def _to_host(t: torch.Tensor) -> torch.Tensor:
 
 
 class _Pod:
-    """One device's slice of the trials: its engine, chunk and state."""
+    """One unit of the trial driver: a device's slice of the trials, or
+    the whole batch of a composed mesh; its engine, chunk and state."""
 
-    def __init__(self, p: EscgParams, dom, device: torch.device,
+    def __init__(self, p: EscgParams, built: engines.BuiltEngine,
                  trial_keys: torch.Tensor, obs_rows: int):
-        self.device = device
-        self.built = engines.build(p, dom, device)
-        self.grids, self.keys = make_trial_init(p, device)(trial_keys)
+        self.device = built.device
+        self.built = built
+        init = built.init_batch or make_trial_init(p, built.device)
+        self.grids, self.keys = init(trial_keys)
         self.ring = self.pos = None
         if obs_rows:
             self.chunk, self.pipe = build_trial_obs_chunk(p, self.built)
             self.ring, self.pos = obs_mod.ring_init(
-                obs_rows, (trial_keys.shape[0], self.pipe.width), device)
+                obs_rows, (trial_keys.shape[0], self.pipe.width),
+                self.device)
         else:
             self.chunk, self.pipe = build_trial_chunk(p, self.built), None
 
@@ -365,7 +373,12 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
     every visible card; ``device='cpu'`` runs the plain path), and
     ``trial_devices=d`` keeps the first d. The batch is padded to a
     multiple of the pod width, each device runs its contiguous slice of
-    the trials, one launch per kernel and MCS for the slice, in chunks of
+    the trials, one launch per kernel and MCS for the slice. The composed
+    engine ``sharded_pod`` lays ``device`` (raster order, entries may
+    repeat) on its ('pod', 'rows', 'cols') mesh of ``params.mesh_shape``
+    and refuses ``trial_devices``; the batch is padded to the pod width and
+    pod group g runs trials g·n .. g·n + n - 1, each decomposed over the
+    group's blocks. The trials run in chunks of
     ``chunk_mcs`` MCS (default ``params.chunk_mcs``). Between chunks the
     host folds the alive masks into per-trial stasis and extinction
     statistics and, with ``stop_on_stasis``, stops once every trial is in
@@ -382,16 +395,24 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
     params, dom = resolve_config(params, dom, engine_config, run_config)
     p = params.validate()
     spec = engines.get_engine(p.engine)
-    if not spec.caps.vmappable:
+    composed = spec.caps.pod_composable
+    if composed:
+        if trial_devices is not None:
+            raise ValueError(
+                f"engine {p.engine!r} lays devices on a composed "
+                "('pod','rows','cols') mesh — set the pod width through "
+                "params.mesh_shape, not trial_devices")
+    elif not spec.caps.vmappable:
         raise ValueError(
             f"engine {p.engine!r} is not vmappable (multi-device engines "
             "decompose one lattice); run IID trials with a single-device "
             "engine and shard the trial axis, or compose the two axes "
             "with engine='sharded_pod' (mesh_shape=(pod, rows, cols))")
-    devices = pod_devices(device, trial_devices)
-    if not spec.caps.trial_shardable and len(devices) > 1:
-        raise ValueError(f"engine {p.engine!r} does not support trial-axis "
-                         "sharding; use one device")
+    else:
+        devices = pod_devices(device, trial_devices)
+        if not spec.caps.trial_shardable and len(devices) > 1:
+            raise ValueError(f"engine {p.engine!r} does not support "
+                             "trial-axis sharding; use one device")
     if n_trials < 1:
         raise ValueError("n_trials must be >= 1")
     if dom is None:
@@ -405,15 +426,23 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
     chunk_len = int(chunk_mcs if chunk_mcs is not None
                     else max(1, min(p.chunk_mcs, n_mcs)))
 
-    n_dev = len(devices)
-    n_pad = pad_trials(n_trials, n_dev)
-    per = n_pad // n_dev
-    trial_keys = fold_trial_keys(key, n_pad)
     obs_rows = (obs_mod.ring_capacity(p, max(1, chunk_len))
                 if p.observables else 0)
-    pods: List[_Pod] = [
-        _Pod(p, dom, d, trial_keys[i * per:(i + 1) * per], obs_rows)
-        for i, d in enumerate(devices)]
+    if composed:
+        # the engine owns the mesh; only the padding to its pod width is here
+        built = engines.build(p, dom, device)
+        n_dev = len(built.mesh.flat)
+        n_pad = pad_trials(n_trials, built.pod_width)
+        pods: List[_Pod] = [_Pod(p, built, fold_trial_keys(key, n_pad),
+                                 obs_rows)]
+    else:
+        n_dev = len(devices)
+        n_pad = pad_trials(n_trials, n_dev)
+        per = n_pad // n_dev
+        trial_keys = fold_trial_keys(key, n_pad)
+        pods = [_Pod(p, engines.build(p, dom, d),
+                     trial_keys[i * per:(i + 1) * per], obs_rows)
+                for i, d in enumerate(devices)]
 
     s = p.species
     # species absent at initialization count as extinct at MCS 0

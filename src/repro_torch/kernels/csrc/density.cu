@@ -1,11 +1,12 @@
 // Species histogram for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/density.py and its
-// lift over a device mesh:
-//   K4  density_kernel          <- density_counts (_kernel), also vmapped
-//                                  over a batch of trials
-//   K4s density_grouped_kernel  <- density_counts_sharded (K4 per shard,
-//                                  then psum)
+// lifts over trials and over a device mesh, all one kernel:
+//   K4  density_kernel  <- density_counts (_kernel), also vmapped over a
+//                          batch of trials
+//   K4s density_kernel  <- density_counts_sharded (K4 per shard, then
+//                          psum), also vmapped over the trials of a pod
+//                          group (the reference's sharded_pod)
 //
 // What it computes. counts[v] = the number of cells of the lattice (n cells
 // of a contiguous run, which may start anywhere) whose label is v, for v in
@@ -33,17 +34,18 @@
 // next launch on the stream. Integer sums, so the result is exact in any
 // order.
 //
-// K4s counts a lattice split into equal blocks (a ShardedLattice's blocks
-// on one card) in one launch instead of one per block plus a sum: the
-// blocks' pointers travel by value in the launch's parameters (RunTable, up
-// to kMaxGroup), blockIdx.y picks the block, each slice of the grid sweeps
-// its block as K4 sweeps a lattice, and all slices add into the one scratch
-// and take the one ticket, so the launch's last block writes the lattice's
-// counts. K4 counts a batch of trials' lattices, stacked in one buffer, in
-// one launch (one lattice is a batch of one): blockIdx.y picks the trial,
-// whose slice of the grid sweeps its lattice with its own accumulators and
-// ticket, so the trial's last block writes its row of the counts. The
-// kernels share count_run.
+// One launch counts a table of runs (RunTable, up to kMaxGroup): run r is
+// n_trials stacked lattices of n labels each (a lattice, a batch of
+// trials, or one block of a decomposed lattice with its pod group's
+// trials), and slice blockIdx.y of the grid is one (run, trial) pair,
+// which sweeps its lattice as above. The runs that share a slot (the
+// blocks of one pod group's lattices) add into one set of accumulators and
+// one ticket per trial, so the last block of a (slot, trial) writes that
+// trial's counts: K4 is one run of one trial, K4 per trial one run of n
+// trials, K4s the blocks of one lattice in one slot, and K4s per trial the
+// blocks of every pod group of a card, a slot per group. The runs'
+// pointers travel by value in the launch's parameters, so a launch copies
+// nothing to the card first.
 #include "tile_staging.cuh"
 
 namespace escg {
@@ -175,35 +177,32 @@ __device__ __forceinline__ void count_run(const T* g, int64_t n, int part,
   if (tid == 0) *ticket = 0;
 }
 
-// K4s: the runs of a group of equal blocks, one slice of the grid
-// (blockIdx.y) per run, passed by value so that a launch copies nothing
-// to the card first.
+// The runs of one launch, by value: run r's n_trials lattices start at
+// run[r], and it adds into slot slot[r], which `members[r]` runs of the
+// launch share (both at most kMaxGroup, so a byte each keeps the launch's
+// parameters small).
 struct RunTable {
   const void* run[kMaxGroup];
+  unsigned char slot[kMaxGroup];
+  unsigned char members[kMaxGroup];
 };
 
+// K4, K4 per trial, K4s and K4s per trial: blockIdx.y is the (run, trial)
+// pair; counts row slot * n_trials + trial has its own ticket
+// scratch[row] and accumulators scratch[rows + row * n_labels ..] (rows =
+// n_slots * n_trials), shared by the members of its slot.
 template <typename T, int NB>
 __global__ void __launch_bounds__(kThreads)
-    density_grouped_kernel(RunTable t, int64_t n, int n_labels,
-                           int* counts, int* scratch) {
-  count_run<T, NB>((const T*)t.run[blockIdx.y], n, blockIdx.x, gridDim.x,
-                   n_labels, counts, scratch, scratch + 1,
-                   gridDim.x * gridDim.y);
-}
-
-// K4 and K4 per trial: the runs of a batch of trials (one lattice: one
-// run), n labels each, stacked from g on; blockIdx.y is the run r, counted
-// into its own row of counts with its own ticket scratch[r] and
-// accumulators scratch[gridDim.y + r * n_labels ..], so there is no bound
-// on the runs but the grid's.
-template <typename T, int NB>
-__global__ void __launch_bounds__(kThreads)
-    density_kernel(const T* g, int64_t n, int n_labels, int* counts,
-                   int* scratch) {
-  const int r = blockIdx.y;
-  count_run<T, NB>(g + r * n, n, blockIdx.x, gridDim.x, n_labels,
-                   counts + (size_t)r * n_labels, scratch + r,
-                   scratch + gridDim.y + (size_t)r * n_labels, gridDim.x);
+    density_kernel(RunTable t, int n_trials, int64_t n, int n_labels,
+                   int n_slots, int* counts, int* scratch) {
+  const int r = blockIdx.y / n_trials;
+  const int trial = blockIdx.y - r * n_trials;
+  const int row = t.slot[r] * n_trials + trial;
+  const size_t rows = (size_t)n_slots * n_trials;
+  count_run<T, NB>((const T*)t.run[r] + trial * n, n, blockIdx.x, gridDim.x,
+                   n_labels, counts + (size_t)row * n_labels, scratch + row,
+                   scratch + rows + (size_t)row * n_labels,
+                   gridDim.x * (unsigned)t.members[r]);
 }
 
 // The card's SM count, asked once per device.
@@ -217,104 +216,89 @@ inline int sm_count(int device) {
   return cache[device];
 }
 
-// One launch over n_runs runs of n labels each, the runs of t:
-// density_grouped_kernel for K4s, else density_kernel (the runs stacked
-// from t.run[0] on). Each run gets as many blocks as it has rounds of
-// kUnroll loads, and all runs together at most max_blocks.
+// One launch over the n_runs runs of t, n_trials lattices of n labels
+// each. Each (run, trial) slice gets as many blocks as it has rounds of
+// kUnroll loads, and all slices together at most max_blocks.
 template <typename T, int NB>
-int launch(const RunTable& t, int n_runs, bool grouped, int64_t n,
-           int n_labels, int* counts, int* scratch, int max_blocks,
-           cudaStream_t stream) {
+int launch(const RunTable& t, int n_runs, int n_trials, int64_t n,
+           int n_labels, int n_slots, int* counts, int* scratch,
+           int max_blocks, cudaStream_t stream) {
   const int64_t per_block = (int64_t)kThreads * kUnroll * (16 / sizeof(T));
   const int64_t want = (n + per_block - 1) / per_block;
-  const int cap = max_blocks / n_runs > 1 ? max_blocks / n_runs : 1;
+  const int slices = n_runs * n_trials;
+  const int cap = max_blocks / slices > 1 ? max_blocks / slices : 1;
   const int blocks = (int)(want < 1 ? 1 : (want < cap ? want : cap));
   const size_t smem = NB == 0 ? (size_t)n_labels * sizeof(int) : 0;
-  if (grouped)
-    density_grouped_kernel<T, NB>
-        <<<dim3(blocks, n_runs), kThreads, smem, stream>>>(
-            t, n, n_labels, counts, scratch);
-  else
-    density_kernel<T, NB><<<dim3(blocks, n_runs), kThreads, smem, stream>>>(
-        (const T*)t.run[0], n, n_labels, counts, scratch);
+  density_kernel<T, NB><<<dim3(blocks, slices), kThreads, smem, stream>>>(
+      t, n_trials, n, n_labels, n_slots, counts, scratch);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
-int dispatch(const RunTable& t, int n_runs, bool grouped, int64_t n,
-             int n_labels, int* counts, int* scratch, int sms,
+int dispatch(const RunTable& t, int n_runs, int n_trials, int64_t n,
+             int n_labels, int n_slots, int* counts, int* scratch, int sms,
              cudaStream_t stream) {
   const int most = sms * kBlocksPerSm;
   if (n_labels <= 4)
-    return launch<T, 4>(t, n_runs, grouped, n, n_labels, counts, scratch,
-                        most, stream);
+    return launch<T, 4>(t, n_runs, n_trials, n, n_labels, n_slots, counts,
+                        scratch, most, stream);
   if (n_labels <= 8)
-    return launch<T, 8>(t, n_runs, grouped, n, n_labels, counts, scratch,
-                        most, stream);
+    return launch<T, 8>(t, n_runs, n_trials, n, n_labels, n_slots, counts,
+                        scratch, most, stream);
   if (n_labels <= 16)
-    return launch<T, 16>(t, n_runs, grouped, n, n_labels, counts, scratch,
-                         most, stream);
-  return launch<T, 0>(t, n_runs, grouped, n, n_labels, counts, scratch, most,
-                      stream);
-}
-
-int count(int cell_bytes, const RunTable& t, int n_runs, bool grouped,
-          int64_t n, int n_labels, int* counts, int* scratch, int device,
-          void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  const int sms = sm_count(device);
-  if (sms < 1) return (int)cudaErrorInvalidDevice;
-  cudaStream_t s = (cudaStream_t)stream;
-  switch (cell_bytes) {
-    case 1:
-      return dispatch<int8_t>(t, n_runs, grouped, n, n_labels, counts,
-                              scratch, sms, s);
-    case 2:
-      return dispatch<int16_t>(t, n_runs, grouped, n, n_labels, counts,
-                               scratch, sms, s);
-    case 4:
-      return dispatch<int32_t>(t, n_runs, grouped, n, n_labels, counts,
-                               scratch, sms, s);
-  }
-  return (int)cudaErrorInvalidValue;
+    return launch<T, 16>(t, n_runs, n_trials, n, n_labels, n_slots, counts,
+                         scratch, most, stream);
+  return launch<T, 0>(t, n_runs, n_trials, n, n_labels, n_slots, counts,
+                      scratch, most, stream);
 }
 
 }  // namespace escg
 
 extern "C" {
 
-// cell_bytes selects the lattice type: 1 = int8, 2 = int16, 4 = int32.
-// Every entry point returns a cudaError_t (0 = launched).
-//
-// K4 and K4 per trial: the counts (n_runs, n_labels) of n_runs (1 ..
-// 65535) runs of n labels each, stacked from `grids` on (one lattice:
-// n_runs = 1), in one launch. scratch holds n_runs * (1 + n_labels) words,
-// all zero before the first launch on a stream; each launch leaves them
-// zero.
-int density_counts(int cell_bytes, const void* grids, int n_runs, int64_t n,
-                   int n_labels, int* counts, int* scratch, int device,
-                   void* stream) {
-  if (n_runs < 1 || n_runs > 65535) return (int)cudaErrorInvalidValue;
-  escg::RunTable t{};
-  t.run[0] = grids;
-  return escg::count(cell_bytes, t, n_runs, false, n, n_labels, counts,
-                     scratch, device, stream);
-}
-
-// K4s: the counts of n_runs (1 .. kMaxGroup) runs of n labels each, in one
-// launch; runs is a host array of their pointers on the card, copied into
-// the launch's parameters; scratch holds 1 + n_labels words, zero as for
-// density_counts.
-int density_counts_grouped(int cell_bytes, const void* const* runs,
-                           int n_runs, int64_t n, int n_labels, int* counts,
-                           int* scratch, int device, void* stream) {
-  if (n_runs < 1 || n_runs > escg::kMaxGroup)
+// The counts (n_slots * n_trials, n_labels) of n_runs (1 .. 32) runs of
+// n_trials lattices of n labels each, n_runs * n_trials <= 65535, in one
+// launch; cell_bytes selects the lattice type (1 = int8, 2 = int16,
+// 4 = int32). runs is a host array of the runs' pointers on the card and
+// slots a host array of their slots (null: every run in slot 0), copied
+// into the launch's parameters; row slot * n_trials + trial sums that
+// trial's lattices of the slot's runs. scratch holds rows * (1 + n_labels)
+// words, all zero before the first launch on a stream; each launch leaves
+// them zero. Returns a cudaError_t (0 = launched).
+int density_counts(int cell_bytes, const void* const* runs, const int* slots,
+                   int n_runs, int n_trials, int64_t n, int n_labels,
+                   int* counts, int* scratch, int device, void* stream) {
+  if (n_runs < 1 || n_runs > escg::kMaxGroup || n_trials < 1 ||
+      (int64_t)n_runs * n_trials > 65535)
     return (int)cudaErrorInvalidValue;
   escg::RunTable t{};
-  for (int r = 0; r < n_runs; ++r) t.run[r] = runs[r];
-  return escg::count(cell_bytes, t, n_runs, true, n, n_labels,
-                     counts, scratch, device, stream);
+  int n_slots = 0;
+  for (int r = 0; r < n_runs; ++r) {
+    const int slot = slots == nullptr ? 0 : slots[r];
+    if (slot < 0 || slot >= n_runs) return (int)cudaErrorInvalidValue;
+    t.run[r] = runs[r];
+    t.slot[r] = (unsigned char)slot;
+    n_slots = slot + 1 > n_slots ? slot + 1 : n_slots;
+  }
+  for (int r = 0; r < n_runs; ++r)
+    for (int q = 0; q < n_runs; ++q) t.members[r] += t.slot[q] == t.slot[r];
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const int sms = escg::sm_count(device);
+  if (sms < 1) return (int)cudaErrorInvalidDevice;
+  cudaStream_t s = (cudaStream_t)stream;
+  switch (cell_bytes) {
+    case 1:
+      return escg::dispatch<int8_t>(t, n_runs, n_trials, n, n_labels,
+                                    n_slots, counts, scratch, sms, s);
+    case 2:
+      return escg::dispatch<int16_t>(t, n_runs, n_trials, n, n_labels,
+                                     n_slots, counts, scratch, sms, s);
+    case 4:
+      return escg::dispatch<int32_t>(t, n_runs, n_trials, n, n_labels,
+                                     n_slots, counts, scratch, sms, s);
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* escg_error_string(int err) {

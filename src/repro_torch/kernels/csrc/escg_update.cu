@@ -1,8 +1,9 @@
 // Stream-fed sublattice round for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel of src/repro/kernels/escg_update.py:
-//   K3 tile_round_kernel  <- escg_tile_round (_kernel), over one lattice or a
-//      batch of trials (blockIdx.y the trial, one launch for all)
+//   K3 tile_round_kernel  <- escg_tile_round (_kernel), over one lattice, a
+//      batch of trials, or every block of every trial of a card (a table of
+//      runs, blockIdx.y the (run, trial) pair, one launch for all)
 //
 // What it computes. The lattice, rolled by -shift (the torus shift of the
 // sublattice scheme), is cut into (th, tw) tiles in raster order. Tile t
@@ -13,7 +14,14 @@
 // neighbour is that cell plus dirs[dirn]. The pair rule is the one of
 // src/repro/core/rules.py and of K1 (pair_rule in tile_staging.cuh). This is
 // core/sublattice.py::run_round without the roll back: the result stays in
-// the rolled frame.
+// the rolled frame. A launch takes a table of up to kMaxRuns runs
+// (StreamRuns): run r is one block of a lattice decomposed over a
+// ('pod', 'rows', 'cols') mesh with the n trials of its pod group (the
+// reference vmaps K3 over the trials inside a shard_map over the blocks),
+// read from its block extended by a halo (tile_staging.cuh) at each trial's
+// own shift, and fed with its own (n, T, K) proposals, drawn for its tiles'
+// global ids. A trial batch is a table of one run, one lattice a table of
+// one run of one trial.
 //
 // What bounds it on this card. Bytes: every update reads 16 bytes of
 // proposals, and the lattice is read and written once, 245.7 MB at
@@ -158,32 +166,45 @@ __device__ __forceinline__ void sweep_chunk(uint32_t* words,
   }
 }
 
-// K3: one round, one block per group of P tiles, read from `in` rolled by
-// (-sr, -sc) and written to `out` in the rolled frame. Over a batch of
-// trials blockIdx.y is the trial t: its lattice is the t-th H x W slice of
-// `in` and `out`, its proposals the t-th (T, K) slice of each field, and
-// its shift shifts[t] ((n, 2) int64 on the card; null for one lattice,
-// which takes sr and sc). Shared memory holds the two chunk buffers, then
-// the staged tiles.
+// The runs of one K3 launch, by value: run r reads its n lattices from
+// in[r] (n stacked sources of sh x sw cells), writes them to out[r] (n
+// stacked H x W lattices) and plays trial t's (T, K) slice of its proposal
+// fields field[r][f] ((n, T, K) each); trial t's shift is shifts[r][t]
+// ((n, 2) int64 on the card), or with shifts[r] null (one lattice) the
+// launch's (sr, sc).
+constexpr int kMaxRuns = 32;
+struct StreamRuns {
+  const void* in[kMaxRuns];
+  void* out[kMaxRuns];
+  const int64_t* shifts[kMaxRuns];
+  const uint32_t* field[kMaxRuns][kFields];
+};
+
+// K3: one round, one block per group of P tiles (blockIdx.x) of each (run,
+// trial) pair (blockIdx.y = run * n + trial), read rolled by the trial's
+// shift and written in the rolled frame. Shared memory holds the two chunk
+// buffers, then the staged tiles.
 template <typename T, typename S, int C, bool VEC>
 __global__ void __launch_bounds__(kWarp)
-    tile_round_kernel(const T* in, T* out, Geometry g, Stream st, int sr,
-                      int sc, const int64_t* shifts, Rule rule,
-                      const float* dom, const int* dirs) {
+    tile_round_kernel(StreamRuns runs, int n, Geometry g, int k, int sr,
+                      int sc, Rule rule, const float* dom, const int* dirs) {
   extern __shared__ __align__(16) uint32_t smem[];
   __shared__ int sdirs[16];
-  const int trial = blockIdx.y;
+  const int r = blockIdx.y / n;
+  const int trial = blockIdx.y - r * n;
+  const int64_t* shifts = runs.shifts[r];
   if (shifts != nullptr) {
     const int64_t dy = shifts[2 * trial], dx = shifts[2 * trial + 1];
     sr = (int)(((dy % g.H) + g.H) % g.H);
     sc = (int)(((dx % g.W) + g.W) % g.W);
   }
-  const size_t cells = (size_t)g.H * g.W;
-  in += trial * cells;
-  out += trial * cells;
+  const T* in = (const T*)runs.in[r] + (size_t)trial * g.sh * g.sw;
+  T* out = (T*)runs.out[r] + (size_t)trial * g.H * g.W;
+  Stream st;
+  st.k = k;
 #pragma unroll
   for (int f = 0; f < kFields; ++f)
-    st.field[f] += (size_t)trial * g.n_tiles * st.k;
+    st.field[f] = runs.field[r][f] + (size_t)trial * g.n_tiles * k;
   uint32_t* chunks = smem;
   const int chunk_words = Chunk<C>::words(g.P);
   uint32_t* words = smem + kStages * chunk_words;
@@ -223,57 +244,18 @@ __host__ inline size_t block_smem(const Geometry& g) {
 }
 
 template <typename T, typename S, int C, bool VEC>
-int launch(void* out, const void* in, int n_trials, const Geometry& g,
-           const Stream& st, int sr, int sc, const int64_t* shifts,
-           const Rule& rule, const float* dom, const int* dirs,
-           cudaStream_t stream) {
+int launch(const StreamRuns& runs, int n_runs, int n, const Geometry& g,
+           int k, int sr, int sc, const Rule& rule, const float* dom,
+           const int* dirs, cudaStream_t stream) {
   const size_t smem = block_smem<C>(g);
   cudaError_t err =
       allow_smem((const void*)tile_round_kernel<T, S, C, VEC>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (g.n_tiles + g.P - 1) / g.P;
   tile_round_kernel<T, S, C, VEC>
-      <<<dim3(n_groups, n_trials), kWarp, smem, stream>>>(
-          (const T*)in, (T*)out, g, st, sr, sc, shifts, rule, dom, dirs);
+      <<<dim3(n_groups, n_runs * n), kWarp, smem, stream>>>(
+          runs, n, g, k, sr, sc, rule, dom, dirs);
   return (int)cudaGetLastError();
-}
-
-// One K3 launch over n_trials lattices; shifts null for one lattice, which
-// takes (shift0, shift1).
-int round_launch(int cell_bytes, int stage_bytes, int tiles_per_block,
-                 void* out, const void* in, int n_trials, int H, int W,
-                 int th, int tw, int k, const int* cell, const int* dirn,
-                 const float* u_act, const float* u_dom, const float* dom,
-                 int n_dom, const int* dirs, float t_eps, float t_eps_mu,
-                 int shift0, int shift1, const int64_t* shifts, int device,
-                 void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n_trials < 1 || n_trials > 65535) return (int)cudaErrorInvalidValue;
-  const Geometry g = make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
-  const Stream st{{(const uint32_t*)cell, (const uint32_t*)dirn,
-                   (const uint32_t*)u_act, (const uint32_t*)u_dom},
-                  k};
-  const Rule rule{t_eps, t_eps_mu, 0, n_dom};
-  const int sr = ((shift0 % H) + H) % H;
-  const int sc = ((shift1 % W) + W) % W;
-  // 16-byte copies where every run of 4 proposal words is 16-byte aligned
-  // (a trial's slice starts T * K words on, a multiple of 4 when K is)
-  const bool vec = k % 4 == 0 &&
-                   ((uintptr_t)cell | (uintptr_t)dirn | (uintptr_t)u_act |
-                    (uintptr_t)u_dom) % 16 == 0;
-  cudaStream_t s = (cudaStream_t)stream;
-  constexpr int C = kChunk;
-  if (vec) {
-    ESCG_DISPATCH(cell_bytes, stage_bytes,
-                  (launch<T, S, C, true>(out, in, n_trials, g, st, sr, sc,
-                                         shifts, rule, dom, dirs, s)));
-  } else {
-    ESCG_DISPATCH(cell_bytes, stage_bytes,
-                  (launch<T, S, C, false>(out, in, n_trials, g, st, sr, sc,
-                                          shifts, rule, dom, dirs, s)));
-  }
-  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace escg
@@ -282,34 +264,62 @@ extern "C" {
 
 // cell_bytes selects the lattice type (1 = int8, 2 = int16, 4 = int32) and
 // stage_bytes the type its cells are staged in (1, or cell_bytes);
-// tiles_per_block is how many tiles a block stages (1..32). The lattice is
-// read rolled by (-shift0, -shift1). Returns a cudaError_t (0 = launched).
+// tiles_per_block is how many tiles a block stages (1..32). Returns a
+// cudaError_t (0 = launched).
+//
+// K3 over n_runs (1 .. 32) runs of n lattices each, n_runs * n <= 65535:
+// run r reads its n stacked sources of SH x SW cells from ins[r], writes its
+// n stacked H x W lattices to outs[r] and plays the (n, T, K) proposal
+// fields fields[4r .. 4r + 3] (cell, dirn, u_act, u_dom; host arrays of
+// pointers on the card). SH is H, or H + th with a halo of th rows from the
+// block below (then every shift's row is below th); SW the same for
+// columns. With `shifts` null (one lattice: n_runs = n = 1) the lattice is
+// read rolled by (-shift0, -shift1); else trial t of run r by its row of
+// shifts[r], (n, 2) int64 on the card.
 int escg_tile_round(int cell_bytes, int stage_bytes, int tiles_per_block,
-                    void* out, const void* in, int H, int W, int th, int tw,
-                    int k, const int* cell, const int* dirn,
-                    const float* u_act, const float* u_dom, const float* dom,
-                    int n_dom, const int* dirs, float t_eps, float t_eps_mu,
-                    int shift0, int shift1, int device, void* stream) {
-  return escg::round_launch(cell_bytes, stage_bytes, tiles_per_block, out,
-                            in, 1, H, W, th, tw, k, cell, dirn, u_act, u_dom,
-                            dom, n_dom, dirs, t_eps, t_eps_mu, shift0, shift1,
-                            nullptr, device, stream);
-}
-
-// K3 over n_trials lattices stacked in `in` and `out`, with (n_trials, T, K)
-// proposal fields and the (n_trials, 2) int64 shifts on the card.
-int escg_tile_round_trials(int cell_bytes, int stage_bytes,
-                           int tiles_per_block, void* out, const void* in,
-                           int n_trials, int H, int W, int th, int tw, int k,
-                           const int* cell, const int* dirn,
-                           const float* u_act, const float* u_dom,
-                           const float* dom, int n_dom, const int* dirs,
-                           float t_eps, float t_eps_mu, const int64_t* shifts,
-                           int device, void* stream) {
-  return escg::round_launch(cell_bytes, stage_bytes, tiles_per_block, out,
-                            in, n_trials, H, W, th, tw, k, cell, dirn, u_act,
-                            u_dom, dom, n_dom, dirs, t_eps, t_eps_mu, 0, 0,
-                            shifts, device, stream);
+                    int n_runs, void* const* outs, const void* const* ins,
+                    const void* const* fields, const int64_t* const* shifts,
+                    int n, int H, int W, int SH, int SW, int th, int tw,
+                    int k, const float* dom, int n_dom, const int* dirs,
+                    float t_eps, float t_eps_mu, int shift0, int shift1,
+                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  if (n_runs < 1 || n_runs > escg::kMaxRuns || n < 1 ||
+      (int64_t)n_runs * n > 65535 || (shifts == nullptr && n_runs * n > 1) ||
+      (SH != H && SH != H + th) || (SW != W && SW != W + tw))
+    return (int)cudaErrorInvalidValue;
+  escg::StreamRuns runs{};
+  // 16-byte copies where every run of 4 proposal words is 16-byte aligned
+  // (a trial's slice starts T * K words on, a multiple of 4 when K is)
+  uintptr_t align = 0;
+  for (int r = 0; r < n_runs; ++r) {
+    runs.in[r] = ins[r];
+    runs.out[r] = outs[r];
+    runs.shifts[r] = shifts == nullptr ? nullptr : shifts[r];
+    for (int f = 0; f < escg::kFields; ++f) {
+      runs.field[r][f] = (const uint32_t*)fields[escg::kFields * r + f];
+      align |= (uintptr_t)runs.field[r][f];
+    }
+  }
+  const bool vec = k % 4 == 0 && align % 16 == 0;
+  const escg::Geometry g = escg::make_geometry(H, W, th, tw, stage_bytes,
+                                               tiles_per_block, SH, SW);
+  const escg::Rule rule{t_eps, t_eps_mu, 0, n_dom};
+  const int sr = ((shift0 % H) + H) % H;
+  const int sc = ((shift1 % W) + W) % W;
+  cudaStream_t s = (cudaStream_t)stream;
+  constexpr int C = escg::kChunk;
+  if (vec) {
+    ESCG_DISPATCH(cell_bytes, stage_bytes,
+                  (escg::launch<T, S, C, true>(runs, n_runs, n, g, k, sr, sc,
+                                               rule, dom, dirs, s)));
+  } else {
+    ESCG_DISPATCH(cell_bytes, stage_bytes,
+                  (escg::launch<T, S, C, false>(runs, n_runs, n, g, k, sr,
+                                                sc, rule, dom, dirs, s)));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* escg_error_string(int err) {

@@ -22,6 +22,16 @@
 // (n, 2) arrays on the card, and K2's blocks walk (trial, tile group)
 // pairs. The trial never enters a Philox counter or a tile id: as in the
 // reference, where each trial has its own key, trials differ by their seeds.
+// K1 also covers every block of every trial of a card in one launch, for
+// a batch of trials decomposed over a ('pod', 'rows', 'cols') mesh (the
+// reference's sharded_pod, which vmaps K1 over the trials inside a
+// shard_map over the blocks): a launch takes a table of up to kMaxRuns
+// runs, each one block of one pod group with its n trials (RoundRuns),
+// and each slice of blockIdx.y is one (run, trial) pair. A run reads its
+// block extended by a halo (tile_staging.cuh), writes its (n, H, W)
+// output, keys its tiles by its block's offset in the global tile grid and
+// takes its group's seeds and shifts. A trial batch is a table of one run,
+// and one lattice a table of one run of one trial.
 //
 // What bounds them on this card. Every proposal costs some 80 integer and
 // float instructions against 4 one-cell accesses, so the sweep is bound by
@@ -202,31 +212,50 @@ __device__ __forceinline__ void round_group(const T* in, T* out,
   store_group<T, S>(out, words, g, tile, r0, c0);
 }
 
-// K1: one round, one block per group of P tiles, over n lattices stacked in
-// `in` and `out` (one lattice: n = 1). blockIdx.y is the lattice t, read
-// rolled by its shift and written to its H x W slice of `out`. With `seeds`
-// null (one lattice) the seed words and shift are the scalars; else those
-// of trial t are seeds[t] and shifts[t] ((n, 2) int64 on the card). The
-// Philox counters are those of one lattice: trials differ by their seeds.
+// The runs of one K1 launch, by value: run r reads its n lattices from
+// in[r] (n stacked sources of sh x sw cells), writes them to out[r] (n
+// stacked H x W lattices), offsets its tile ids by (off0[r], off1[r]) tiles
+// and takes trial t's seed words and shift from seeds[r][t] and
+// shifts[r][t] ((n, 2) int64 on the card), or with seeds[r] null (one
+// lattice) from the launch's scalars.
+constexpr int kMaxRuns = 32;
+struct RoundRuns {
+  const void* in[kMaxRuns];
+  void* out[kMaxRuns];
+  const int64_t* seeds[kMaxRuns];
+  const int64_t* shifts[kMaxRuns];
+  uint32_t off0[kMaxRuns], off1[kMaxRuns];
+};
+
+// K1: one round, one block per group of P tiles (blockIdx.x) of each
+// (run, trial) pair (blockIdx.y = run * n + trial), the lattice read rolled
+// by its shift and written to its slice of the run's output. The Philox
+// counters are those of the run's tiles in the global tile grid: trials
+// differ by their seeds.
 template <typename T, typename S>
 __global__ void __launch_bounds__(kWarp)
-    tile_round_kernel(const T* in, T* out, Geometry g, Sweep sw,
-                      const int64_t* seeds, const int64_t* shifts, int sr,
+    tile_round_kernel(RoundRuns runs, int n, Geometry g, Sweep sw, int sr,
                       int sc, uint32_t seed0, uint32_t seed1,
                       uint32_t round) {
   extern __shared__ uint32_t words[];
   __shared__ int sdirs[16];
   load_dirs(sw.dirs, sdirs);
-  const int t = blockIdx.y;
+  const int r = blockIdx.y / n;
+  const int t = blockIdx.y - r * n;
+  const int64_t* seeds = runs.seeds[r];
   if (seeds != nullptr) {
+    const int64_t* shifts = runs.shifts[r];
     sr = wrap(shifts[2 * t], g.H);
     sc = wrap(shifts[2 * t + 1], g.W);
     seed0 = (uint32_t)seeds[2 * t];
     seed1 = (uint32_t)seeds[2 * t + 1];
   }
-  const size_t cells = (size_t)g.H * g.W;
-  round_group<T, S>(in + t * cells, out + t * cells, words, g, sw, sdirs,
-                    blockIdx.x, sr, sc, seed0, seed1, round);
+  sw.off0 = runs.off0[r];
+  sw.off1 = runs.off1[r];
+  const T* in = (const T*)runs.in[r] + (size_t)t * g.sh * g.sw;
+  T* out = (T*)runs.out[r] + (size_t)t * g.H * g.W;
+  round_group<T, S>(in, out, words, g, sw, sdirs, blockIdx.x, sr, sc, seed0,
+                    seed1, round);
 }
 
 // Add a warp's bins into `dst` and zero them.
@@ -303,17 +332,16 @@ __host__ inline size_t block_smem(const Geometry& g, int n_dom) {
 }
 
 template <typename T, typename S>
-int launch_round(void* out, const void* in, int n, const Geometry& g,
-                 const Sweep& sw, const int64_t* seeds,
-                 const int64_t* shifts, int sr, int sc, uint32_t seed0,
+int launch_round(const RoundRuns& runs, int n_runs, int n, const Geometry& g,
+                 const Sweep& sw, int sr, int sc, uint32_t seed0,
                  uint32_t seed1, uint32_t round, cudaStream_t stream) {
   const size_t smem = block_smem(g, sw.rule.n_dom);
   cudaError_t err = allow_smem((const void*)tile_round_kernel<T, S>, smem);
   if (err != cudaSuccess) return (int)err;
   const int n_groups = (g.n_tiles + g.P - 1) / g.P;
-  tile_round_kernel<T, S><<<dim3(n_groups, n), kWarp, smem, stream>>>(
-      (const T*)in, (T*)out, g, sw, seeds, shifts, sr, sc, seed0, seed1,
-      round);
+  tile_round_kernel<T, S><<<dim3(n_groups, n_runs * n), kWarp, smem,
+                            stream>>>(runs, n, g, sw, sr, sc, seed0, seed1,
+                                      round);
   return (int)cudaGetLastError();
 }
 
@@ -377,33 +405,51 @@ extern "C" {
 // tiles_per_block is how many tiles a block stages (1..32). Every entry
 // point returns a cudaError_t (0 = launched).
 //
-// K1 over n lattices stacked in `in` and `out` (one lattice: n = 1). With
-// `seeds` null the seed words are seed0/seed1 and the shift shift0/shift1;
-// else each lattice's are its rows of the (n, 2) int64 `seeds` and `shifts`
-// on the card.
+// K1 over n_runs (1 .. 32) runs of n lattices each, n_runs * n <= 65535:
+// run r reads its n stacked sources of SH x SW cells from ins[r] and writes
+// its n stacked H x W lattices to outs[r] (host arrays of pointers on the
+// card), its tile ids offset by (offsets[2r], offsets[2r + 1]) tiles in a
+// global tile grid gw tiles wide. SH is H, or H + th with a halo of th
+// rows from the block below (then every shift's row is below th); SW the
+// same for columns. With `seeds` null (one lattice: n_runs = n = 1) the seed
+// words are seed0/seed1 and the shift shift0/shift1; else trial t of run r
+// takes its own from seeds[r] and shifts[r], (n, 2) int64 on the card.
 int escg_tile_round_fused(int cell_bytes, int stage_bytes,
-                          int tiles_per_block, void* out, const void* in,
-                          int n, int H, int W, int th, int tw, int k,
-                          uint32_t gw, uint32_t off0, uint32_t off1,
-                          const int64_t* seeds, const int64_t* shifts,
+                          int tiles_per_block, int n_runs, void* const* outs,
+                          const void* const* ins,
+                          const int64_t* const* seeds,
+                          const int64_t* const* shifts,
+                          const uint32_t* offsets, int n, int H, int W,
+                          int SH, int SW, int th, int tw, int k, uint32_t gw,
                           uint32_t seed0, uint32_t seed1, uint32_t round,
                           int shift0, int shift1, const float* dom,
                           int n_dom, const int* dirs, int nbhd, float t_eps,
                           float t_eps_mu, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  if (n < 1 || n > 65535 || (n > 1 && seeds == nullptr))
+  if (n_runs < 1 || n_runs > escg::kMaxRuns || n < 1 ||
+      (int64_t)n_runs * n > 65535 || (seeds == nullptr && n_runs * n > 1) ||
+      (SH != H && SH != H + th) || (SW != W && SW != W + tw))
     return (int)cudaErrorInvalidValue;
-  const escg::Geometry g =
-      escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
-  const escg::Sweep sw{k, gw, off0, off1,
+  escg::RoundRuns runs{};
+  for (int r = 0; r < n_runs; ++r) {
+    runs.in[r] = ins[r];
+    runs.out[r] = outs[r];
+    runs.seeds[r] = seeds == nullptr ? nullptr : seeds[r];
+    runs.shifts[r] = seeds == nullptr ? nullptr : shifts[r];
+    runs.off0[r] = offsets[2 * r];
+    runs.off1[r] = offsets[2 * r + 1];
+  }
+  const escg::Geometry g = escg::make_geometry(H, W, th, tw, stage_bytes,
+                                               tiles_per_block, SH, SW);
+  const escg::Sweep sw{k, gw, 0u, 0u,
                        escg::Rule{t_eps, t_eps_mu, nbhd, n_dom}, dom, dirs};
   const int sr = ((shift0 % H) + H) % H;
   const int sc = ((shift1 % W) + W) % W;
   cudaStream_t s = (cudaStream_t)stream;
   ESCG_DISPATCH(cell_bytes, stage_bytes,
-                (escg::launch_round<T, S>(out, in, n, g, sw, seeds, shifts,
-                                          sr, sc, seed0, seed1, round, s)));
+                (escg::launch_round<T, S>(runs, n_runs, n, g, sw, sr, sc,
+                                          seed0, seed1, round, s)));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -422,8 +468,8 @@ int escg_tile_rounds_fused(int cell_bytes, int stage_bytes,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const escg::Geometry g =
-      escg::make_geometry(H, W, th, tw, stage_bytes, tiles_per_block);
+  const escg::Geometry g = escg::make_geometry(H, W, th, tw, stage_bytes,
+                                               tiles_per_block, H, W);
   const escg::Sweep sw{k, gw, off0, off1,
                        escg::Rule{t_eps, t_eps_mu, nbhd, n_dom}, dom, dirs};
   cudaStream_t s = (cudaStream_t)stream;
@@ -440,8 +486,8 @@ int escg_tile_rounds_fused_blocks(int cell_bytes, int stage_bytes,
                                   int tiles_per_block, int th, int tw,
                                   int n_dom, int device) {
   if (cudaSetDevice(device) != cudaSuccess) return 0;
-  const escg::Geometry g =
-      escg::make_geometry(th, tw, th, tw, stage_bytes, tiles_per_block);
+  const escg::Geometry g = escg::make_geometry(th, tw, th, tw, stage_bytes,
+                                               tiles_per_block, th, tw);
   ESCG_DISPATCH(cell_bytes, stage_bytes,
                 (escg::cooperative_blocks<T, S>(g, n_dom, device)));
   return 0;

@@ -6,7 +6,12 @@
 // one per lane (Geometry, Staging, group_tile): lane t's cells sit in bank
 // t, so the lanes' sweeps never conflict. load_group reads the block's tiles
 // coalesced from device memory with the torus roll fused into the load, and
-// store_group writes them back coalesced. pair_rule is the update of one
+// store_group writes them back coalesced. The tiles are read from a source
+// that is the lattice itself or, for one block of a lattice decomposed over
+// a mesh, the block extended by a halo: th more rows from the block below
+// and tw more columns from the block to the right (Geometry's sh, sw). A
+// read at a shift of less than a tile then stays inside the extended block,
+// and an axis without a halo wraps as a torus. pair_rule is the update of one
 // pair of cells (src/repro/core/rules.py), Divisor the exact division by a
 // divisor fixed for the launch, and Staging's splat and equal count equal
 // labels packed in a 32-bit word. The cp_async helpers copy from device to
@@ -55,9 +60,13 @@ struct Rule {
   int n_dom;       // species + 1: side of the padded dominance matrix
 };
 
-// Where the tiles lie and how a block stages them.
+// Where the tiles lie and how a block stages them. The tiles cut the H x W
+// lattice that is written; they are read from a source of sh x sw cells
+// (rows sw apart), which is the lattice itself (sh = H, sw = W) or the
+// lattice extended by a halo on an axis (sh = H + th, sw = W + tw).
 struct Geometry {
   int H, W, th, tw;
+  int sh, sw;     // the source's extent, where a read wraps
   int lgw;        // tiles per row of this lattice
   int n_tiles;
   int P;          // tiles per block (one per lane)
@@ -116,9 +125,11 @@ __device__ __forceinline__ int group_tile(const Geometry& g, int group,
 }
 
 // Stage the group's tiles from `src` rolled by (-sr, -sc): cell (r, c) of a
-// tile at (r0, c0) is src[(r0 + r + sr) mod H][(c0 + c + sc) mod W]. Lanes
-// walk each tile row kPer cells at a time, tile after tile, so a warp reads
-// runs of consecutive cells.
+// tile at (r0, c0) is src[(r0 + r + sr) mod sh][(c0 + c + sc) mod sw], with
+// 0 <= sr < H and 0 <= sc < W. On an axis with a halo the shift is less than
+// the tile, so the read never wraps there. Lanes walk each tile row kPer
+// cells at a time, tile after tile, so a warp reads runs of consecutive
+// cells.
 template <typename T, typename S>
 __device__ void load_group(const T* src, uint32_t* words, const Geometry& g,
                            int my_tile, int my_r0, int my_c0, int sr,
@@ -139,13 +150,13 @@ __device__ void load_group(const T* src, uint32_t* words, const Geometry& g,
 #pragma unroll
     for (int b = 0; b < St::kPer; ++b) {
       const int c = c0 + gi * St::kPer + b + sc;
-      cols[b] = c < g.W ? c : c - g.W;
+      cols[b] = c < g.sw ? c : c - g.sw;
     }
 #pragma unroll 8
     for (int r = 0; r < g.th; ++r) {
       int row = r0 + r + sr;
-      row = row < g.H ? row : row - g.H;
-      const T* line = src + (size_t)row * g.W;
+      row = row < g.sh ? row : row - g.sh;
+      const T* line = src + (size_t)row * g.sw;
       uint32_t word = 0;
 #pragma unroll
       for (int b = 0; b < St::kPer; ++b) {
@@ -259,13 +270,18 @@ __device__ __forceinline__ void load_dirs(const int* dirs, int* sdirs) {
   if (threadIdx.x < 16) sdirs[threadIdx.x] = dirs[threadIdx.x];
 }
 
+// The geometry of an H x W lattice read from an sh x sw source (sh = H and
+// sw = W: the lattice itself).
 __host__ inline Geometry make_geometry(int H, int W, int th, int tw,
-                                       int stage_bytes, int P) {
+                                       int stage_bytes, int P, int sh,
+                                       int sw) {
   Geometry g;
   g.H = H;
   g.W = W;
   g.th = th;
   g.tw = tw;
+  g.sh = sh;
+  g.sw = sw;
   g.lgw = W / tw;
   g.n_tiles = (H / th) * g.lgw;
   g.P = P;

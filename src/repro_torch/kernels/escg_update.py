@@ -14,7 +14,13 @@ raises for a tile that does not fit. Its plain version is
 ``escg_tile_round_trials`` is K3 over a batch of IID trials: n lattices
 stacked as one (n, H, W) tensor, (n, T, K) proposal fields and (n, 2)
 shifts on the card, one launch for all of them; its plain version is the
-single-lattice one, trial by trial.
+single-lattice one, trial by trial. ``escg_tile_round_table`` is K3 over
+every block of every trial of a card (``core/sharded_pod.py``): up to
+``MAX_RUNS`` runs in one launch, each one block of one pod group read from
+the block extended by a halo at each trial's own shift
+(``escg_update_fused.halo_windows``) and fed its own (n, T, K) proposals;
+its plain version is the plain K3 of each run's windows. One lattice, a
+trial batch and a table are one kernel.
 
 The wrappers launch the kernel for a CUDA grid; for a CPU grid they roll
 and take the plain version. ``LAUNCHES`` counts kernel launches, the
@@ -23,7 +29,7 @@ trial form's under its own name.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import List, Sequence, Tuple
 
 import torch
 
@@ -32,7 +38,8 @@ from ..core.rng import ProposalBatch
 from . import build
 from . import escg_update_fused as fused
 
-LAUNCHES = {"escg_tile_round": 0, "escg_tile_round_trials": 0}
+LAUNCHES = {"escg_tile_round": 0, "escg_tile_round_trials": 0,
+            "escg_tile_round_table": 0}
 
 _LIB = "escg_update"
 # kChunk and kPad of csrc/escg_update.cu: proposals per tile in a chunk, and
@@ -48,16 +55,38 @@ def _lib() -> ctypes.CDLL:
     fn = lib.escg_tile_round
     if fn.argtypes is None:
         i32, ptr, f32 = ctypes.c_int, ctypes.c_void_p, ctypes.c_float
-        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
-                       ptr, ptr, ptr, ptr, ptr, i32, ptr, f32, f32, i32, i32,
-                       i32, ptr]
-        fn.restype = i32
-        fn = lib.escg_tile_round_trials
-        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32, i32,
-                       ptr, ptr, ptr, ptr, ptr, i32, ptr, f32, f32, ptr, i32,
-                       ptr]
+        fn.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, ptr, i32, i32,
+                       i32, i32, i32, i32, i32, i32, ptr, i32, ptr, f32, f32,
+                       i32, i32, i32, ptr]
         fn.restype = i32
     return lib
+
+
+def _launch(outs, ins, fields, shifts, n: int,
+            block_shape: Tuple[int, int], tile_shape: Tuple[int, int],
+            k: int, dom: torch.Tensor, dirs: torch.Tensor, t_eps: float,
+            t_eps_mu: float, shift: Tuple[int, int] = (0, 0)) -> None:
+    """One K3 launch over the runs ``ins[r]`` -> ``outs[r]`` (n stacked
+    lattices of ``block_shape`` cells each, read from sources of the shape
+    of ``ins[r]``'s last two dims), playing ``fields[r]`` (cell, dirn,
+    u_act, u_dom), with the runs' (n, 2) ``shifts`` on the card, or
+    ``None`` for one lattice read at the scalar ``shift``."""
+    first = ins[0]
+    h, w = block_shape
+    sh, sw = first.shape[-2:]
+    th, tw = tile_shape
+    stage, per_block = staging(tile_shape, first.element_size(),
+                               dom.shape[0])
+    device, stream = build.launch_args(first)
+    lib = _lib()
+    err = lib.escg_tile_round(
+        first.element_size(), stage, per_block, len(ins), fused._ptrs(outs),
+        fused._ptrs(ins), fused._ptrs([f for run in fields for f in run]),
+        None if shifts is None else fused._ptrs(shifts), n, h, w, sh, sw,
+        th, tw, int(k), build.ptr(dom), dom.shape[0], build.ptr(dirs),
+        float(t_eps), float(t_eps_mu), int(shift[0]), int(shift[1]), device,
+        stream)
+    build.check(lib, err, "escg_tile_round launch")
 
 
 def staging(tile_shape: Tuple[int, int], cell_bytes: int,
@@ -133,20 +162,10 @@ def escg_tile_round(grid: torch.Tensor, cell: torch.Tensor,
             grid = torch.roll(grid, (-dy, -dx), (0, 1))
         return escg_tile_round_plain(grid, cell, dirn, u_act, u_dom, dom,
                                      tile_shape, t_eps, t_eps_mu)
-    stage, per_block = staging(tile_shape, grid.element_size(),
-                               dom.shape[0])
-    device, stream = build.launch_args(grid)
     h, w = grid.shape
-    th, tw = tile_shape
     out = torch.empty_like(grid)
-    lib = _lib()
-    err = lib.escg_tile_round(
-        grid.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(grid), h, w, th, tw, int(k), build.ptr(cell),
-        build.ptr(dirn), build.ptr(u_act), build.ptr(u_dom), build.ptr(dom),
-        dom.shape[0], build.ptr(dirs), float(t_eps), float(t_eps_mu),
-        dy % h, dx % w, device, stream)
-    build.check(lib, err, "escg_tile_round launch")
+    _launch([out], [grid], [(cell, dirn, u_act, u_dom)], None, 1, (h, w),
+            tile_shape, k, dom, dirs, t_eps, t_eps_mu, (dy % h, dx % w))
     LAUNCHES["escg_tile_round"] += 1
     return out
 
@@ -200,19 +219,66 @@ def escg_tile_round_trials(grids: torch.Tensor, cell: torch.Tensor,
         return escg_tile_round_trials_plain(grids, cell, dirn, u_act, u_dom,
                                             dom, tile_shape, t_eps, t_eps_mu,
                                             shifts)
-    stage, per_block = staging(tile_shape, grids.element_size(),
-                               dom.shape[0])
-    device, stream = build.launch_args(grids)
     _, h, w = grids.shape
-    th, tw = tile_shape
     out = torch.empty_like(grids)
-    lib = _lib()
-    err = lib.escg_tile_round_trials(
-        grids.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(grids), n, h, w, th, tw, int(k), build.ptr(cell),
-        build.ptr(dirn), build.ptr(u_act), build.ptr(u_dom), build.ptr(dom),
-        dom.shape[0], build.ptr(dirs), float(t_eps), float(t_eps_mu),
-        build.ptr(shifts), device, stream)
-    build.check(lib, err, "escg_tile_round_trials launch")
+    _launch([out], [grids], [(cell, dirn, u_act, u_dom)], [shifts], n,
+            (h, w), tile_shape, k, dom, dirs, t_eps, t_eps_mu)
     LAUNCHES["escg_tile_round_trials"] += 1
     return out
+
+
+# ---------- the table form: K3 over every block of every trial ----------- #
+
+def escg_tile_round_table_plain(sources: Sequence[torch.Tensor],
+                                props: Sequence[ProposalBatch],
+                                shifts: Sequence[torch.Tensor],
+                                block_shape: Tuple[int, int],
+                                dom: torch.Tensor,
+                                tile_shape: Tuple[int, int], t_eps: float,
+                                t_eps_mu: float) -> List[torch.Tensor]:
+    """Plain version of K3's table form: the plain K3 of each trial's
+    window of each run at its shift."""
+    return [torch.stack([
+        escg_tile_round_plain(g, *(f[t] for f in pr), dom, tile_shape,
+                              t_eps, t_eps_mu)
+        for t, g in enumerate(fused.halo_windows(src, sh, block_shape))])
+        for src, pr, sh in zip(sources, props, shifts)]
+
+
+def escg_tile_round_table(sources: Sequence[torch.Tensor],
+                          props: Sequence[ProposalBatch],
+                          shifts: Sequence[torch.Tensor],
+                          block_shape: Tuple[int, int], dom: torch.Tensor,
+                          dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                          t_eps: float, t_eps_mu: float
+                          ) -> List[torch.Tensor]:
+    """One sublattice round of every run of a table in one K3 launch: run
+    r is the n trials of one block, ``sources[r]`` its (n, sh, sw) cells
+    with their halo; trial t reads its window at ``shifts[r][t]`` ((n, 2)
+    int64) and plays its (T, K) slice of the (n, T, K) fields of
+    ``props[r]``, drawn for the block's global tile ids. Every run lies on
+    one device, with ``dom`` and ``dirs``; returns each run's (n, H, W)
+    block in the rolled frame."""
+    n = fused._check_table(sources, (shifts,), block_shape, tile_shape)
+    if len(props) != len(sources) or len(shifts) != len(sources):
+        raise ValueError("a table gives every run its proposals and shifts")
+    h, w = block_shape
+    for pr in props:
+        if pr.cell.dim() != 3 or pr.cell.shape[0] != n:
+            raise ValueError(f"a run's proposals are ({n}, T, K), got "
+                             f"{tuple(pr.cell.shape)}")
+        k = _check(sources[0][0, :h, :w], pr.cell[0], pr.dirn[0],
+                   pr.u_act[0], pr.u_dom[0], tile_shape)
+        for f in pr:
+            if f.shape != pr.cell.shape:
+                raise ValueError("the proposal fields differ in shape")
+    build.check_tables(sources[0], dom, dirs)
+    if sources[0].device.type == "cpu":
+        return escg_tile_round_table_plain(sources, props, shifts,
+                                           block_shape, dom, tile_shape,
+                                           t_eps, t_eps_mu)
+    outs = [src.new_empty((n, h, w)) for src in sources]
+    _launch(outs, list(sources), [tuple(pr) for pr in props], list(shifts),
+            n, block_shape, tile_shape, k, dom, dirs, t_eps, t_eps_mu)
+    LAUNCHES["escg_tile_round_table"] += 1
+    return outs

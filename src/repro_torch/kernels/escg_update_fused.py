@@ -24,6 +24,15 @@ enters a Philox counter, so trial t equals the single-lattice kernel with
 its own seeds and shift (the reference vmaps its kernels over trials).
 Their plain versions are the single-lattice ones, trial by trial.
 
+The table form ``escg_tile_round_fused_table`` is K1 over every block of
+every trial of a card, for a trial batch decomposed over a ('pod', 'rows',
+'cols') mesh (``core/sharded_pod.py``): up to ``MAX_RUNS`` runs in one
+launch, each one block of one pod group, read from the block extended by a
+halo at each trial's own shift (``halo_windows``) and keyed by the block's
+offset in the global tile grid. A trial batch is a table of one run and one
+lattice a table of one run of one trial: the three forms are one kernel.
+Its plain version is the plain trial form on each run's windows.
+
 On the card a block stages up to 32 tiles in shared memory, as int8 where
 the labels 0..S fit it (S <= 127) and else in the lattice's type;
 ``staging`` sizes it and raises for a tile that does not fit.
@@ -36,7 +45,7 @@ run can show that it went through the kernels.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -48,7 +57,8 @@ from .philox import philox_proposal_fields
 
 LAUNCHES = {"escg_tile_round_fused": 0, "escg_tile_rounds_fused": 0,
             "escg_tile_round_fused_trials": 0,
-            "escg_tile_rounds_fused_trials": 0}
+            "escg_tile_rounds_fused_trials": 0,
+            "escg_tile_round_fused_table": 0}
 
 _LIB = "escg_update_fused"
 # the shared memory a block may use on the H100 (227 KB), less the kernels'
@@ -56,6 +66,7 @@ _LIB = "escg_update_fused"
 SMEM_BYTES = 232448 - 64
 TILES_PER_BLOCK = 32        # a block is one warp, one tile per lane
 MAX_TRIALS = 65535          # trials in one launch (the grid's y extent)
+MAX_RUNS = 32               # runs in one table launch (kMaxRuns)
 
 
 def reset_launches() -> None:
@@ -132,9 +143,9 @@ def _lib() -> ctypes.CDLL:
     if fn.argtypes is None:
         u32, i32, ptr = ctypes.c_uint32, ctypes.c_int, ctypes.c_void_p
         f32 = ctypes.c_float
-        fn.argtypes = [i32, i32, i32, ptr, ptr, i32, i32, i32, i32, i32,
-                       i32, u32, u32, u32, ptr, ptr, u32, u32, u32, i32, i32,
-                       ptr, i32, ptr, i32, f32, f32, i32, ptr]
+        fn.argtypes = [i32, i32, i32, i32, ptr, ptr, ptr, ptr, ptr, i32,
+                       i32, i32, i32, i32, i32, i32, i32, u32, u32, u32, u32,
+                       i32, i32, ptr, i32, ptr, i32, f32, f32, i32, ptr]
         fn.restype = i32
         fn = lib.escg_tile_rounds_fused
         fn.argtypes = [i32, i32, i32, ptr, ptr, ptr, i32, i32, i32, i32,
@@ -155,6 +166,46 @@ def cooperative_blocks(grid: torch.Tensor, species: int,
     return _lib().escg_tile_rounds_fused_blocks(
         grid.element_size(), stage, per_block, *tile_shape, species + 1,
         device)
+
+
+def _ptrs(tensors) -> ctypes.Array:
+    """A host array of the tensors' data pointers (a C ``void**``)."""
+    return (ctypes.c_void_p * len(tensors))(
+        *(build.ptr(t).value for t in tensors))
+
+
+def _launch_round(outs, ins, seeds, shifts, offsets, n: int,
+                  block_shape: Tuple[int, int], tile_shape: Tuple[int, int],
+                  k_per_tile: int, grid_tiles_w: int, dom: torch.Tensor,
+                  dirs: torch.Tensor, neighbourhood: int, t_eps: float,
+                  t_eps_mu: float, round_idx: int = 0,
+                  seed: Tuple[int, int] = (0, 0),
+                  shift: Tuple[int, int] = (0, 0)) -> None:
+    """One K1 launch over the runs ``ins[r]`` -> ``outs[r]`` (each n stacked
+    lattices of ``block_shape`` cells, read from sources of the shape of
+    ``ins[r]``'s last two dims), with the runs' (n, 2) ``seeds``/``shifts``
+    on the card, or ``None`` for one lattice with the scalar ``seed`` and
+    ``shift``."""
+    first = ins[0]
+    h, w = block_shape
+    sh, sw = first.shape[-2:]
+    th, tw = tile_shape
+    stage, per_block = staging(tile_shape, first.element_size(),
+                               dom.shape[0])
+    device, stream = build.launch_args(first)
+    offs = (ctypes.c_uint32 * (2 * len(ins)))(
+        *(int(v) & MASK for off in offsets for v in off))
+    lib = _lib()
+    err = lib.escg_tile_round_fused(
+        first.element_size(), stage, per_block, len(ins), _ptrs(outs),
+        _ptrs(ins), None if seeds is None else _ptrs(seeds),
+        None if shifts is None else _ptrs(shifts), offs, n, h, w, sh, sw,
+        th, tw, int(k_per_tile), int(grid_tiles_w) & MASK,
+        int(seed[0]) & MASK, int(seed[1]) & MASK, int(round_idx) & MASK,
+        int(shift[0]), int(shift[1]), build.ptr(dom), dom.shape[0],
+        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
+        device, stream)
+    build.check(lib, err, "escg_tile_round_fused launch")
 
 
 # ----------------------------- K1: one round ------------------------------ #
@@ -213,20 +264,11 @@ def escg_tile_round_fused(grid: torch.Tensor, seed: Tuple[int, int],
         return escg_tile_round_fused_plain(
             grid, seed, round_idx, dom, tile_shape, k_per_tile, t_eps,
             t_eps_mu, neighbourhood, tile_offset, grid_tiles_w, shift)
-    stage, per_block = staging(tile_shape, grid.element_size(),
-                               dom.shape[0])
-    device, stream = build.launch_args(grid)
     out = torch.empty_like(grid)
-    lib = _lib()
-    err = lib.escg_tile_round_fused(
-        grid.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(grid), 1, h, w, th, tw, int(k_per_tile), gtw & MASK,
-        int(tile_offset[0]) & MASK, int(tile_offset[1]) & MASK, None, None,
-        int(seed[0]) & MASK, int(seed[1]) & MASK, int(round_idx) & MASK,
-        int(shift[0]) % h, int(shift[1]) % w, build.ptr(dom), dom.shape[0],
-        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
-        device, stream)
-    build.check(lib, err, "escg_tile_round_fused launch")
+    _launch_round([out], [grid], None, None, [tuple(tile_offset)], 1,
+                  (h, w), tile_shape, k_per_tile, gtw, dom, dirs,
+                  neighbourhood, t_eps, t_eps_mu, round_idx, seed,
+                  (int(shift[0]) % h, int(shift[1]) % w))
     LAUNCHES["escg_tile_round_fused"] += 1
     return out
 
@@ -338,13 +380,17 @@ def escg_tile_round_fused_trials_plain(grids: torch.Tensor,
                                        k_per_tile: int, t_eps: float,
                                        t_eps_mu: float,
                                        neighbourhood: int = 4,
-                                       round_idx: int = 0) -> torch.Tensor:
+                                       round_idx: int = 0,
+                                       tile_offset: Tuple[int, int] = (0, 0),
+                                       grid_tiles_w: Optional[int] = None
+                                       ) -> torch.Tensor:
     """Plain version of K1 over trials: the plain K1 of each trial with its
     seed words and shift."""
     return torch.stack([
         escg_tile_round_fused_plain(g, tuple(s), round_idx, dom, tile_shape,
                                     k_per_tile, t_eps, t_eps_mu,
-                                    neighbourhood, shift=tuple(sh))
+                                    neighbourhood, tile_offset, grid_tiles_w,
+                                    tuple(sh))
         for g, s, sh in zip(grids, seeds.tolist(), shifts.tolist())])
 
 
@@ -367,22 +413,130 @@ def escg_tile_round_fused_trials(grids: torch.Tensor, seeds: torch.Tensor,
             grids, seeds, shifts, dom, tile_shape, k_per_tile, t_eps,
             t_eps_mu, neighbourhood, round_idx)
     _, h, w = grids.shape
-    th, tw = tile_shape
-    stage, per_block = staging(tile_shape, grids.element_size(),
-                               dom.shape[0])
-    device, stream = build.launch_args(grids)
     out = torch.empty_like(grids)
-    lib = _lib()
-    err = lib.escg_tile_round_fused(
-        grids.element_size(), stage, per_block, build.ptr(out),
-        build.ptr(grids), n, h, w, th, tw, int(k_per_tile), (w // tw) & MASK,
-        0, 0, build.ptr(seeds), build.ptr(shifts), 0, 0,
-        int(round_idx) & MASK, 0, 0, build.ptr(dom), dom.shape[0],
-        build.ptr(dirs), int(neighbourhood), float(t_eps), float(t_eps_mu),
-        device, stream)
-    build.check(lib, err, "escg_tile_round_fused_trials launch")
+    _launch_round([out], [grids], [seeds], [shifts], [(0, 0)], n, (h, w),
+                  tile_shape, k_per_tile, w // tile_shape[1], dom, dirs,
+                  neighbourhood, t_eps, t_eps_mu, round_idx)
     LAUNCHES["escg_tile_round_fused_trials"] += 1
     return out
+
+
+# ------------- the table form: K1 over every block of a card -------------- #
+
+def halo_windows(source: torch.Tensor, shifts: torch.Tensor,
+                 block_shape: Tuple[int, int]) -> torch.Tensor:
+    """Each trial's window of a run's (n, sh, sw) source at its shift
+    ((n, 2) int64, taken modulo the block): ``out[t, r, c] = source[t, (r
+    + dy) % sh, (c + dx) % sw]`` for r, c inside the block, as the kernels
+    read it. On an axis with a halo (the source longer than the block by a
+    tile) a shift below the tile reads within the source; on an axis
+    without one it is the torus's roll."""
+    n, sh, sw = source.shape
+    h, w = block_shape
+    dev = source.device
+    d = shifts.to(device=dev, dtype=torch.int64) % torch.tensor(
+        [h, w], device=dev)
+    rows = (torch.arange(h, device=dev)[None, :] + d[:, :1]) % sh
+    cols = (torch.arange(w, device=dev)[None, :] + d[:, 1:]) % sw
+    idx = (rows[:, :, None] * sw + cols[:, None, :]).reshape(n, -1)
+    return torch.gather(source.reshape(n, -1), 1, idx).reshape(n, h, w)
+
+
+def _check_table(sources: Sequence[torch.Tensor],
+                 schedules: Sequence[Sequence[torch.Tensor]],
+                 block_shape: Tuple[int, int],
+                 tile_shape: Tuple[int, int]) -> int:
+    """Validate a table's runs, all on one device: (n, sh, sw) sources of
+    one type with sh the block's height or that plus a tile (a halo),
+    likewise sw, and each run's (n, 2) int64 tensors; returns n."""
+    if not 1 <= len(sources) <= MAX_RUNS:
+        raise ValueError(f"a table holds 1 to {MAX_RUNS} runs, got "
+                         f"{len(sources)}")
+    first = sources[0]
+    (h, w), (th, tw) = block_shape, tile_shape
+    n = first.shape[0] if first.dim() == 3 else 0
+    if not 1 <= n or len(sources) * n > MAX_TRIALS:
+        raise ValueError(f"a run is (n, sh, sw) with 1 <= runs x n <= "
+                         f"{MAX_TRIALS}, got {tuple(first.shape)}")
+    if first.shape[1] not in (h, h + th) or first.shape[2] not in (w, w + tw):
+        raise ValueError(f"a source of a {h}x{w} block is its cells or "
+                         f"those and a halo of a {th}x{tw} tile, got "
+                         f"{tuple(first.shape[1:])}")
+    if first.dtype not in build.CELL_DTYPES:
+        raise ValueError(f"cells must be int8/int16/int32, got "
+                         f"{first.dtype}")
+    if th < 3 or tw < 3 or h % th or w % tw:
+        raise ValueError(f"tile {tuple(tile_shape)} must be >= 3x3 and "
+                         f"divide the block {h}x{w}")
+    for src in sources:
+        if src.shape != first.shape or src.dtype != first.dtype \
+                or src.device != first.device:
+            raise ValueError(f"the runs differ: {tuple(src.shape)} "
+                             f"{src.dtype} on {src.device} beside "
+                             f"{tuple(first.shape)} {first.dtype} on "
+                             f"{first.device}")
+    for tensors in schedules:
+        for t in tensors:
+            if t.dtype != torch.int64 or tuple(t.shape) != (n, 2) \
+                    or t.device != first.device:
+                raise ValueError(f"a run's seeds and shifts are ({n}, 2) "
+                                 f"int64 on {first.device}, got "
+                                 f"{tuple(t.shape)} {t.dtype} on "
+                                 f"{t.device}")
+    return n
+
+
+def escg_tile_round_fused_table_plain(
+        sources: Sequence[torch.Tensor], seeds: Sequence[torch.Tensor],
+        shifts: Sequence[torch.Tensor],
+        tile_offsets: Sequence[Tuple[int, int]],
+        block_shape: Tuple[int, int], dom: torch.Tensor,
+        tile_shape: Tuple[int, int], k_per_tile: int, t_eps: float,
+        t_eps_mu: float, neighbourhood: int, grid_tiles_w: int,
+        round_idx: int = 0) -> List[torch.Tensor]:
+    """Plain version of K1's table form: the plain K1 over trials of each
+    run's windows at their shifts, keyed by the run's tile offset."""
+    return [escg_tile_round_fused_trials_plain(
+        halo_windows(src, sh, block_shape), s, torch.zeros_like(sh), dom,
+        tile_shape, k_per_tile, t_eps, t_eps_mu, neighbourhood, round_idx,
+        off, grid_tiles_w)
+        for src, s, sh, off in zip(sources, seeds, shifts, tile_offsets)]
+
+
+def escg_tile_round_fused_table(
+        sources: Sequence[torch.Tensor], seeds: Sequence[torch.Tensor],
+        shifts: Sequence[torch.Tensor],
+        tile_offsets: Sequence[Tuple[int, int]],
+        block_shape: Tuple[int, int], dom: torch.Tensor, dirs: torch.Tensor,
+        tile_shape: Tuple[int, int], k_per_tile: int, t_eps: float,
+        t_eps_mu: float, neighbourhood: int, grid_tiles_w: int,
+        round_idx: int = 0) -> List[torch.Tensor]:
+    """One fused round of every run of a table in one K1 launch: run r is
+    the n trials of one block, ``sources[r]`` its (n, sh, sw) cells with
+    their halo, and trial t reads its window at ``shifts[r][t]`` with the
+    seed words ``seeds[r][t]`` (both (n, 2) int64), its tiles keyed by
+    ``tile_offsets[r]`` in a global grid ``grid_tiles_w`` tiles wide.
+    Every run lies on one device, with ``dom`` and ``dirs``; returns each
+    run's (n, H, W) block in the rolled frame. The caller guards the
+    global counter space (``check_counter_capacity``)."""
+    n = _check_table(sources, (seeds, shifts), block_shape, tile_shape)
+    if len(seeds) != len(sources) or len(shifts) != len(sources) \
+            or len(tile_offsets) != len(sources):
+        raise ValueError("a table gives every run its seeds, shifts and "
+                         "tile offset")
+    _check_tables(sources[0], dom, dirs, neighbourhood)
+    if sources[0].device.type == "cpu":
+        return escg_tile_round_fused_table_plain(
+            sources, seeds, shifts, tile_offsets, block_shape, dom,
+            tile_shape, k_per_tile, t_eps, t_eps_mu, neighbourhood,
+            grid_tiles_w, round_idx)
+    outs = [src.new_empty((n,) + tuple(block_shape)) for src in sources]
+    _launch_round(outs, list(sources), list(seeds), list(shifts),
+                  tile_offsets, n, block_shape, tile_shape, k_per_tile,
+                  grid_tiles_w, dom, dirs, neighbourhood, t_eps, t_eps_mu,
+                  round_idx)
+    LAUNCHES["escg_tile_round_fused_table"] += 1
+    return outs
 
 
 def escg_tile_rounds_fused_trials_plain(grids: torch.Tensor,

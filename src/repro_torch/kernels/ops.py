@@ -2,12 +2,15 @@
 torus roll, which the reference keeps outside its Pallas calls, is fused
 into the tile loads of K1, K2 and K3, and the reference engine's
 sequential scan is S1. The ``*_trials`` forms run K1, K2, K3 and K4 over a
-batch of IID trials, one launch for all. ``launches``/``reset_launches``
-read and clear every kernel's launch count, the trial forms' under their
-own names."""
+batch of IID trials, one launch for all; the ``*_table`` forms run K1 and
+K3 over every block of every trial of a card, and
+``density_counts_sharded_trials`` K4s per trial, for a trial batch
+decomposed over a ('pod', 'rows', 'cols') mesh. ``launches``/
+``reset_launches`` read and clear every kernel's launch count, each form's
+under its own name."""
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -23,6 +26,8 @@ from .reference_scan import reference_scan
 __all__ = ["escg_round", "escg_round_fused", "escg_rounds_fused",
            "density_counts", "escg_round_trials", "escg_round_fused_trials",
            "escg_rounds_fused_trials", "density_counts_trials",
+           "escg_round_fused_table", "escg_round_table",
+           "density_counts_sharded_trials",
            "philox_bits", "philox_uniform", "reference_scan", "launches",
            "reset_launches"]
 
@@ -142,3 +147,43 @@ def density_counts_trials(grids: torch.Tensor, species: int) -> torch.Tensor:
     """Counts per label 0..S of each trial of a batch, (n, S+1) int32 (K4
     per trial on the card)."""
     return density_kernel.density_counts_trials(grids, species)
+
+
+def escg_round_fused_table(sources: Sequence[torch.Tensor],
+                           seeds: Sequence[torch.Tensor],
+                           shifts: Sequence[torch.Tensor],
+                           tile_offsets: Sequence[Tuple[int, int]],
+                           block_shape: Tuple[int, int], dom: torch.Tensor,
+                           dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                           k_per_tile: int, t_eps: float, t_eps_mu: float,
+                           neighbourhood: int, grid_tiles_w: int
+                           ) -> List[torch.Tensor]:
+    """Fused-PRNG round of every block of every trial in one K1 launch:
+    run r is a block's (n, sh, sw) cells with their halo, each trial read
+    at its own shift with its own seed words; the frames drift."""
+    return fused.escg_tile_round_fused_table(
+        sources, seeds, shifts, tile_offsets, block_shape, dom, dirs,
+        tile_shape, k_per_tile, t_eps, t_eps_mu, neighbourhood,
+        grid_tiles_w)
+
+
+def escg_round_table(sources: Sequence[torch.Tensor],
+                     props: Sequence[ProposalBatch],
+                     shifts: Sequence[torch.Tensor],
+                     block_shape: Tuple[int, int], dom: torch.Tensor,
+                     dirs: torch.Tensor, tile_shape: Tuple[int, int],
+                     t_eps: float, t_eps_mu: float) -> List[torch.Tensor]:
+    """Stream-fed round of every block of every trial in one K3 launch:
+    run r is a block's (n, sh, sw) cells with their halo and its (n, T, K)
+    proposals, each trial read at its own shift; the frames drift."""
+    return escg_kernel.escg_tile_round_table(sources, props, shifts,
+                                             block_shape, dom, dirs,
+                                             tile_shape, t_eps, t_eps_mu)
+
+
+def density_counts_sharded_trials(groups: Sequence[Sequence[torch.Tensor]],
+                                  species: int) -> torch.Tensor:
+    """Counts per label 0..S of each trial of a decomposed trial batch,
+    groups of (n, bh, bw) blocks -> (G * n, S+1) int32 (K4s per trial, one
+    launch per device)."""
+    return density_kernel.density_counts_sharded_trials(groups, species)

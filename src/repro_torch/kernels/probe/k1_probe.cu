@@ -246,9 +246,13 @@ template <typename T>
 int new_k1(T* out, const T* in, int stage_bytes, int k, int sr, int sc,
            uint32_t s0, uint32_t s1, const float* dom, const int* dirs,
            Rule rule) {
-  return escg_tile_round_fused((int)sizeof(T), stage_bytes, 32, out, in, H,
-                               W, TH, TW, k, W / TW, 0, 0, s0, s1, 0, sr, sc,
-                               dom, rule.n_dom, dirs, rule.nbhd, rule.t_eps,
+  void* outs[] = {out};
+  const void* ins[] = {in};
+  const uint32_t offsets[] = {0u, 0u};
+  return escg_tile_round_fused((int)sizeof(T), stage_bytes, 32, 1, outs, ins,
+                               nullptr, nullptr, offsets, 1, H, W, H, W, TH,
+                               TW, k, W / TW, s0, s1, 0, sr, sc, dom,
+                               rule.n_dom, dirs, rule.nbhd, rule.t_eps,
                                rule.t_eps_mu, 0, nullptr);
 }
 
@@ -373,18 +377,17 @@ int run() {
   std::vector<int> want(STEPS * 4, 0);
   std::vector<int32_t> host(n);
   for (int s = 0; s < STEPS; ++s) {
-    CHECK((cudaError_t)escg_tile_round_fused(
-        4, 1, 32, b32, a32, H, W, TH, TW, K, W / TW, 0, 0,
-        (uint32_t)seeds_h[2 * s], (uint32_t)seeds_h[2 * s + 1], 0,
-        (int)shifts_h[2 * s], (int)shifts_h[2 * s + 1], dom, 4, dirs, 4,
-        rule.t_eps, rule.t_eps_mu, 0, nullptr));
+    CHECK((cudaError_t)new_k1(b32, a32, 1, K, (int)shifts_h[2 * s],
+                              (int)shifts_h[2 * s + 1],
+                              (uint32_t)seeds_h[2 * s],
+                              (uint32_t)seeds_h[2 * s + 1], dom, dirs, rule));
     CHECK(cudaMemcpy(a32, b32, n * 4, cudaMemcpyDefault));
     CHECK(cudaMemcpy(host.data(), a32, n * 4, cudaMemcpyDefault));
     for (int32_t v : host) want[4 * s + v] += 1;
   }
   t = timer.ms([&] {
     CHECK((cudaError_t)escg_tile_rounds_fused(
-        4, 1, 32, b32, c32, in32, H, W, TH, TW, K, W / TW, 0, 0, seeds,
+        4, 1, 32, b32, c32, in32, 1, H, W, TH, TW, K, W / TW, 0, 0, seeds,
         shifts, STEPS, dom, 4, dirs, 4, rule.t_eps, rule.t_eps_mu, counts,
         0, nullptr));
   });

@@ -261,17 +261,27 @@ int run() {
   CHECK(cudaDeviceSynchronize());
 
   auto geometry = [](int stage) {
-    return escg::make_geometry(H, W, TH, TW, stage, 32);
+    return escg::make_geometry(H, W, TH, TW, stage, 32, H, W);
+  };
+  // one lattice as the kernel's table of one run
+  auto one_run = [&](const Stream& s) {
+    escg::StreamRuns runs{};
+    runs.in[0] = in;
+    runs.out[0] = got;
+    for (int f = 0; f < escg::kFields; ++f) runs.field[0][f] = s.field[f];
+    return runs;
   };
   auto chunked = [&](auto c, auto vec, int stage, int sr, int sc) {
     constexpr int C = decltype(c)::value;
     constexpr bool VEC = decltype(vec)::value;
     const Geometry g = geometry(stage);
     if (stage == 1)
-      return escg::launch<int32_t, int8_t, C, VEC>(got, in, g, st, sr, sc,
-                                                   rule, dom, dirs, nullptr);
-    return escg::launch<int32_t, int32_t, C, VEC>(got, in, g, st, sr, sc,
-                                                  rule, dom, dirs, nullptr);
+      return escg::launch<int32_t, int8_t, C, VEC>(one_run(st), 1, 1, g, K,
+                                                   sr, sc, rule, dom, dirs,
+                                                   nullptr);
+    return escg::launch<int32_t, int32_t, C, VEC>(one_run(st), 1, 1, g, K,
+                                                  sr, sc, rule, dom, dirs,
+                                                  nullptr);
   };
   using C8 = std::integral_constant<int, 8>;
   using C16 = std::integral_constant<int, 16>;
@@ -305,10 +315,13 @@ int run() {
               "differing from the previous K3 on the rolled lattice %ld\n",
               t, differ(got, want_rolled));
   t = timer.ms([&] {
-    CHECK((cudaError_t)escg_tile_round(4, 1, 32, got, in, H, W, TH, TW, K,
-                                       cell, dirn, ua, ud, dom, 4, dirs,
-                                       rule.t_eps, rule.t_eps_mu, 0, 0, 0,
-                                       nullptr));
+    void* outs[] = {got};
+    const void* ins[] = {in};
+    const void* fl[] = {cell, dirn, ua, ud};
+    CHECK((cudaError_t)escg_tile_round(4, 1, 32, 1, outs, ins, fl, nullptr,
+                                       1, H, W, H, W, TH, TW, K, dom, 4,
+                                       dirs, rule.t_eps, rule.t_eps_mu, 0, 0,
+                                       0, nullptr));
   });
   report("the library's entry point (kChunk)", t, want);
 
@@ -326,7 +339,7 @@ int run() {
   const Stream none{{fields[0], fields[1], fields[2], fields[3]}, 0};
   t = timer.ms([&] {
     CHECK(((cudaError_t)escg::launch<int32_t, int8_t, escg::kChunk, true>(
-        got, in, g1, none, 0, 0, rule, dom, dirs, nullptr)));
+        one_run(none), 1, 1, g1, 0, 0, 0, rule, dom, dirs, nullptr)));
   });
   std::printf("[probe] load and store alone (K = 0): %.4f ms, cells "
               "differing from the input %ld\n", t, differ(got, in));

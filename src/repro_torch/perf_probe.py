@@ -1,7 +1,7 @@
 """Where a path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.perf_probe [--engine E] [--out FILE]
-        [--local-kernel K] [--trials N]
+        [--local-kernel K] [--trials N] [--mesh-shape P,R,C]
 
 Runs park3 at 3200 x 3200 on engine ``E`` (default ``pallas_fused``, the
 main path of ``chip_smoke.py``) and reports:
@@ -33,11 +33,14 @@ observables) on a (2, 2) mesh of four ``cuda:0`` entries, the whole
 decomposition on one card. (The plain
 ``sublattice`` engine launches some 7,700 per MCS and is not offered.)
 With ``--trials N`` it probes the trial driver instead (``trials.
-run_trials``, ``E`` one of ``pallas_fused``, ``pallas``, ``batched``): N
-trials of park3 at 3200 x 3200 (``pallas_fused``, ``pallas``, park3's
-declared observables) or of Park's eight species at 100 x 100
-(``batched``, the ``probabilistic`` preset), in chunks of a quarter of a
-window, after a warm-up run. It reports the host time per MCS of the
+run_trials``, ``E`` one of ``pallas_fused``, ``pallas``, ``batched``,
+``sharded_pod``): N trials of park3 at 3200 x 3200 (``pallas_fused``,
+``pallas``, ``sharded_pod``; park3's declared observables) or of Park's
+eight species at 100 x 100 (``batched``, the ``probabilistic`` preset),
+in chunks of a quarter of a window, after a warm-up run.
+``sharded_pod`` (only with ``--trials``) runs ``--local-kernel`` on a
+``--mesh-shape`` mesh (default 2,2,2) of ``cuda:0`` entries, the whole
+composed mesh on one card. It reports the host time per MCS of the
 batched key chain of all N trials (``schedule_batch``), the steady wall
 per MCS with ``async_stats`` on and off (a run of two windows less a run
 of one, over a window), and from a trace
@@ -60,8 +63,8 @@ from .core import observables as obs_mod
 from .core.scenarios import (EngineConfig, RunConfig, compose,
                              make_scenario, resolve_config)
 from .core.simulation import simulate
-from .core.trials import (build_trial_chunk, fold_trial_keys, run_trials,
-                          trial_grids_and_keys)
+from .core.trials import build_trial_chunk, fold_trial_keys, run_trials
+from .core.trials import make_trial_init as trials_init
 
 SIDE, TILE = 3200, (8, 32)
 SHARD_GRID = (2, 2)         # the sharded engine's mesh, all on cuda:0
@@ -113,8 +116,7 @@ def _window(engine: str, k_mcs: int, observables, device=None,
             "device_busy_ms_per_mcs": busy,
             "idle_share": 1.0 - busy / traced_ms,
             "k4_ms_per_mcs": sum(ms for name, ms in by_kernel.items()
-                                 if "density_kernel" in name
-                                 or "density_grouped_kernel" in name),
+                                 if "density_kernel" in name),
             "s1_ms_per_mcs": sum(ms for name, ms in by_kernel.items()
                                  if "reference_scan_kernel" in name),
             "device_ms_per_mcs_by_kernel": dict(
@@ -124,10 +126,12 @@ def _window(engine: str, k_mcs: int, observables, device=None,
 # the trial windows: (scenario, side, MCS in a window of four chunks)
 TRIAL_CELLS = {"pallas_fused": ("park3", SIDE, 20),
                "pallas": ("park3", SIDE, 4),
-               "batched": ("probabilistic", 100, 12)}
+               "batched": ("probabilistic", 100, 12),
+               "sharded_pod": ("park3", SIDE, 20)}
 
 
-def _trial_window(engine: str, n_trials: int) -> dict:
+def _trial_window(engine: str, n_trials: int, devices=None,
+                  **engine_kw) -> dict:
     """Steady-state wall per MCS of ``run_trials`` with ``n_trials``
     trials (``TRIAL_CELLS``): the wall of a run of twice the window less
     that of a run of the window, over the window, so the lattices' set-up
@@ -138,7 +142,7 @@ def _trial_window(engine: str, n_trials: int) -> dict:
     name, side, window = TRIAL_CELLS[engine]
     chunk_mcs = window // 4
     sc = make_scenario(name)
-    eng = EngineConfig(engine=engine, tile=TILE)
+    eng = EngineConfig(engine=engine, tile=TILE, **engine_kw)
     run = RunConfig(length=side, height=side, mcs=window,
                     chunk_mcs=chunk_mcs)
 
@@ -146,7 +150,8 @@ def _trial_window(engine: str, n_trials: int) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         run_trials(sc, n_trials=n_trials, engine=eng, run=run.replace(mcs=mcs),
-                   stop_on_stasis=False, async_stats=async_stats)
+                   stop_on_stasis=False, async_stats=async_stats,
+                   device=devices)
         torch.cuda.synchronize()
         return time.perf_counter() - t0
 
@@ -161,9 +166,9 @@ def _trial_window(engine: str, n_trials: int) -> dict:
 
     p, dom = resolve_config(sc, None, eng, run)
     p = p.validate()
-    built = engines.build(p, dom, "cuda")
-    grids, keys = trial_grids_and_keys(p, threefry.PRNGKey(0), n_trials,
-                                       "cuda")
+    built = engines.build(p, dom, devices or "cuda")
+    init = built.init_batch or trials_init(p, built.device)
+    grids, keys = init(fold_trial_keys(threefry.PRNGKey(0), n_trials))
     chunk = build_trial_chunk(p, built, obs_mod.build_pipeline(p)
                               if p.observables else None)
     acts = [torch.profiler.ProfilerActivity.CPU,
@@ -182,13 +187,14 @@ def _trial_window(engine: str, n_trials: int) -> dict:
             by_kernel[key] = (by_kernel.get(key, 0.0)
                               + _device_us(evt) / window / 1e3)
     busy = sum(by_kernel.values())
-    host = engines.build(p, dom, "cpu")
+    host = engines.build(p, dom, ["cpu"] * len(devices) if devices
+                         else "cpu")
     t0 = time.perf_counter()
     host.schedule_batch(fold_trial_keys(threefry.PRNGKey(0), n_trials),
                         window)
     chain_us = (time.perf_counter() - t0) / window * 1e6
     wall = min(walls[True])
-    return {"engine": engine, "scenario": name,
+    return {"engine": engine, **engine_kw, "scenario": name,
             "lattice": f"{side}x{side}", "trials": n_trials, "mcs": window,
             "chunk_mcs": chunk_mcs, "observables": list(p.observables),
             "host_key_chain_us_per_mcs_all_trials": chain_us,
@@ -284,15 +290,21 @@ def _reference_parts_ms() -> dict:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--engine", default="pallas_fused",
-                    choices=tuple(WINDOW))
+                    choices=tuple(WINDOW) + ("sharded_pod",))
     ap.add_argument("--out", default=None)
     ap.add_argument("--local-kernel", default="fused",
                     choices=("fused", "pallas", "jnp"))
     ap.add_argument("--trials", type=int, default=None,
                     help="probe run_trials with this many trials")
+    ap.add_argument("--mesh-shape", default="2,2,2",
+                    help="sharded_pod's (pod, rows, cols) mesh, P,R,C")
     args = ap.parse_args(argv)
     if args.trials is not None and args.engine not in TRIAL_CELLS:
         raise SystemExit(f"--trials takes --engine in {tuple(TRIAL_CELLS)}")
+    if args.engine == "sharded_pod" and args.trials is None:
+        raise SystemExit("--engine sharded_pod probes run_trials: pass "
+                         "--trials N")
+    mesh_shape = tuple(int(v) for v in args.mesh_shape.split(","))
     shard = {}
     if args.engine == "sharded":
         shard = dict(shard_grid=SHARD_GRID, local_kernel=args.local_kernel)
@@ -304,8 +316,13 @@ def main(argv=None) -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
     if args.trials is not None:
+        pod = {}
+        if args.engine == "sharded_pod":
+            pod = dict(devices=["cuda:0"] * (mesh_shape[0] * mesh_shape[1]
+                                             * mesh_shape[2]),
+                       mesh_shape=mesh_shape, local_kernel=args.local_kernel)
         return _emit({"card": card, "trial_window": _trial_window(
-            args.engine, args.trials)}, args.out)
+            args.engine, args.trials, **pod)}, args.out)
     built = engines.build(
         compose(make_scenario("park3"),
                 EngineConfig(engine=args.engine, tile=TILE, **shard),

@@ -12,7 +12,10 @@ across ``k_mcs`` and observables, the ``pallas`` engine to
 ``sublattice``, ``batched`` to the CPU and to S1 dropping conflicts, and
 the ``sharded`` engine on a mesh of one card's entries to its
 single-device twins; the trial forms of K1-K4 to their plain versions,
-and ``run_trials`` on the card to the CPU.
+and ``run_trials`` on the card to the CPU; the table forms of K1 and K3
+and K4s per trial (every block of every trial of a card) to their plain
+versions, and ``sharded_pod`` on a (2, 2, 2) mesh of one card's entries
+to the single-device trial engines.
 """
 import hashlib
 import json
@@ -459,13 +462,13 @@ def test_density_counts_sharded_groups_equal_plain(cuda, dtype, shard_grid):
 
 
 @pytest.mark.parametrize("local_kernel,single,kernel", [
-    ("fused", "pallas_fused", "escg_tile_round_fused"),
-    ("pallas", "pallas", "escg_tile_round")])
+    ("fused", "pallas_fused", "escg_tile_round_fused_table"),
+    ("pallas", "pallas", "escg_tile_round_table")])
 def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
                                                   kernel):
-    """A (2, 2) mesh of four ``cuda:0`` entries: one kernel launch per
-    block and MCS, one K4s launch for every count, no ``torch.roll``, and
-    the single-device engine's lattice and streams."""
+    """A (2, 2) mesh of four ``cuda:0`` entries: one table launch per MCS
+    for the four blocks, one K4s launch for every count, no
+    ``torch.roll``, and the single-device engine's lattice and streams."""
     def run(engine, device, **kw):
         return simulate(make_scenario("park3"),
                         engine=EngineConfig(engine=engine, tile=(8, 16),
@@ -486,7 +489,7 @@ def test_sharded_on_one_card_equals_single_device(cuda, local_kernel, single,
     finally:
         torch.roll = real_roll
     counted = ops.launches()
-    assert counted[kernel] == 4 * 4 and counted["density_counts"] == 0
+    assert counted[kernel] == 4 and counted["density_counts"] == 0
     assert counted["density_counts_sharded"] == 5
     assert rolls[0] == 0
     want = run(single, cuda)
@@ -686,3 +689,192 @@ def test_trial_chunk_on_the_card_equals_per_trial_simulate(cuda, engine,
                               cnt[t].cpu().numpy() / p.n_cells), t
         assert s.kept_fraction == \
             int(kept_sum[t]) / (6 * built.attempts_per_mcs), t
+
+
+# ------- the table forms: every block of every trial of a card --------- #
+
+# (block, tile, proposals per tile, halo rows, halo columns): every
+# combination of halos, K other than th * tw, partial groups of tiles
+TABLE_CASES = [
+    ((24, 40), (8, 8), 64, True, True),
+    ((16, 48), (8, 16), 37, True, False),
+    ((24, 64), (8, 32), 256, False, True),
+    ((32, 64), (16, 32), 512, False, False),
+]
+TABLE_SIZES = [(1, 1), (1, 16), (4, 3), (8, 1), (8, 16)]
+
+
+def _table_runs(dev, n_runs, n, block, tile, halo, dtype, seed=11):
+    """Sources (n, sh, sw) with labels -1..5, and each run's (n, 2) shifts:
+    0, 1 and tile - 1 on an axis with a halo, and also H - 1 and W - 1
+    without one."""
+    (h, w), (th, tw) = block, tile
+    sh, sw = h + (th if halo[0] else 0), w + (tw if halo[1] else 0)
+    gen = torch.Generator(dev).manual_seed(seed)
+    sources = [torch.randint(-1, 6, (n, sh, sw), device=dev, generator=gen,
+                             dtype=torch.int32).clamp_(min=0).to(dtype)
+               for _ in range(n_runs)]
+    rows = [0, 1, th - 1] + ([] if halo[0] else [h - 1])
+    cols = [0, 1, tw - 1] + ([] if halo[1] else [w - 1])
+    shifts = [torch.tensor([(rows[(r + t) % len(rows)],
+                             cols[(2 * r + t) % len(cols)])
+                            for t in range(n)], dtype=torch.int64,
+                           device=dev) for r in range(n_runs)]
+    return sources, shifts
+
+
+@pytest.mark.parametrize("n_runs,n", TABLE_SIZES)
+@pytest.mark.parametrize("block,tile,k,halo_r,halo_c", TABLE_CASES)
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 4)])
+def test_round_table_kernel_equals_plain(cuda, dtype, nbhd, block, tile, k,
+                                         halo_r, halo_c, n_runs, n):
+    """K1's table form, one launch for every run and trial, against the
+    plain K1 of each trial's window at its own shift, keyed by its run's
+    tile offset in a global grid wider than the block."""
+    sources, shifts = _table_runs(cuda, n_runs, n, block, tile,
+                                  (halo_r, halo_c), dtype)
+    seeds = [_trial_seeds(n, cuda).roll(r, 0) for r in range(n_runs)]
+    offsets = [(3 * r, 2 * r + 1) for r in range(n_runs)]
+    dom, dirs = _tables(5, cuda)
+    gw = 3 * block[1] // tile[1] + 5
+    before = fused.LAUNCHES["escg_tile_round_fused_table"]
+    got = fused.escg_tile_round_fused_table(
+        sources, seeds, shifts, offsets, block, dom, dirs, tile, k, 0.25,
+        0.6, nbhd, gw)
+    want = fused.escg_tile_round_fused_table_plain(
+        sources, seeds, shifts, offsets, block, dom, tile, k, 0.25, 0.6,
+        nbhd, gw)
+    torch.cuda.synchronize()
+    assert fused.LAUNCHES["escg_tile_round_fused_table"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (n,) + block and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n_runs,n", TABLE_SIZES)
+@pytest.mark.parametrize("block,tile,k,halo_r,halo_c", TABLE_CASES)
+@pytest.mark.parametrize("dtype,nbhd", [(torch.int32, 4), (torch.int8, 8),
+                                        (torch.int16, 4)])
+def test_stream_round_table_kernel_equals_plain(cuda, dtype, nbhd, block,
+                                                tile, k, halo_r, halo_c,
+                                                n_runs, n):
+    """K3's table form, one launch for every run and trial, against the
+    plain K3 of each trial's window at its own shift with its own
+    proposals."""
+    sources, shifts = _table_runs(cuda, n_runs, n, block, tile,
+                                  (halo_r, halo_c), dtype)
+    (h, w), (th, tw) = block, tile
+    n_tiles = (h // th) * (w // tw)
+    props = [rng.tile_stream_batch(
+        threefry.split(threefry.PRNGKey(20 + r), n).to(cuda),
+        torch.arange(n_tiles, device=cuda) + 7 * r, k,
+        (th - 2) * (tw - 2), nbhd) for r in range(n_runs)]
+    dom, dirs = _tables(5, cuda)
+    before = escg_update.LAUNCHES["escg_tile_round_table"]
+    got = escg_update.escg_tile_round_table(sources, props, shifts, block,
+                                            dom, dirs, tile, 0.25, 0.6)
+    want = escg_update.escg_tile_round_table_plain(sources, props, shifts,
+                                                   block, dom, tile, 0.25,
+                                                   0.6)
+    torch.cuda.synchronize()
+    assert escg_update.LAUNCHES["escg_tile_round_table"] == before + 1
+    for a, b in zip(got, want):
+        assert a.shape == (n,) + block and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("groups,blocks", [(1, 1), (1, 4), (2, 4), (8, 1),
+                                           (5, 8)])
+@pytest.mark.parametrize("n", [1, 3, 16])
+@pytest.mark.parametrize("dtype", [torch.int8, torch.int16, torch.int32])
+def test_density_sharded_trials_equals_plain(cuda, dtype, n, groups,
+                                             blocks):
+    """K4s per trial: every block of every pod group in one launch per 32
+    blocks (five groups of eight make two launches), a ticket per (group,
+    trial), labels outside 0..S, S on both sides of the 16 register
+    bins."""
+    for species in (3, 16, 40):
+        gen = torch.Generator(cuda).manual_seed(species)
+        grp = [[torch.randint(-2, species + 4, (n, 12, 20), device=cuda,
+                              generator=gen, dtype=torch.int32).to(dtype)
+                for _ in range(blocks)] for _ in range(groups)]
+        before = density.LAUNCHES["density_counts_sharded_trials"]
+        got = density.density_counts_sharded_trials(grp, species)
+        torch.cuda.synchronize()
+        assert density.LAUNCHES["density_counts_sharded_trials"] == \
+            before + -(-groups * blocks // density.MAX_GROUP)
+        assert got.shape == (groups * n, species + 1)
+        assert torch.equal(got, density.density_counts_sharded_trials_plain(
+            grp, species))
+
+
+@pytest.mark.parametrize("local_kernel,single,kernel", [
+    ("fused", "pallas_fused", "escg_tile_round_fused_table"),
+    ("pallas", "pallas", "escg_tile_round_table")])
+@pytest.mark.parametrize("mesh_shape", [(2, 2, 2), (1, 2, 1), (4, 1, 2)])
+def test_sharded_pod_on_one_card_equals_single_device(cuda, mesh_shape,
+                                                      local_kernel, single,
+                                                      kernel):
+    """``run_trials`` of ``sharded_pod`` over a mesh of ``cuda:0`` entries:
+    one table launch and one K4s-per-trial launch per MCS for every trial
+    of every pod group, no ``torch.roll``, and the single-device engine's
+    trials, observables included."""
+    from repro_torch.core.trials import run_trials
+
+    def run(engine, device, **kw):
+        return run_trials(make_scenario("park3"), n_trials=7,
+                          engine=EngineConfig(engine=engine, tile=(8, 16),
+                                              **kw),
+                          run=RunConfig(length=128, height=64, mcs=4,
+                                        chunk_mcs=2),
+                          stop_on_stasis=False, device=device)
+    real_roll, rolls = torch.roll, [0]
+
+    def counted_roll(*args, **kwargs):
+        rolls[0] += 1
+        return real_roll(*args, **kwargs)
+    n_dev = mesh_shape[0] * mesh_shape[1] * mesh_shape[2]
+    ops.reset_launches()
+    torch.roll = counted_roll
+    try:
+        got = run("sharded_pod", ["cuda:0"] * n_dev, mesh_shape=mesh_shape,
+                  local_kernel=local_kernel)
+    finally:
+        torch.roll = real_roll
+    counted = ops.launches()
+    assert counted[kernel] == 4
+    assert counted["density_counts_sharded_trials"] == 4 + 1
+    assert counted["density_counts"] == counted["density_counts_trials"] == 0
+    assert rolls[0] == 0
+    want = run(single, cuda)
+    got_d, want_d = json.loads(got.to_json()), json.loads(want.to_json())
+    assert got_d.pop("n_devices") == n_dev and want_d.pop("n_devices") == 1
+    assert got_d == want_d
+
+
+@pytest.mark.parametrize("mesh_shape", [(4, 1, 1), (2, 2, 1)])
+def test_sharded_pod_k_mcs_on_one_card_equals_pallas_fused(cuda,
+                                                           mesh_shape):
+    """``k_mcs=3`` on ``sharded_pod``/'fused': K2's trial form once per pod
+    group and launch group on a (P, 1, 1) mesh, K single table rounds
+    elsewhere; either way the trials of ``pallas_fused``."""
+    from repro_torch.core.trials import run_trials
+
+    def run(engine, device, **kw):
+        return run_trials(make_scenario("park3"), n_trials=8,
+                          engine=EngineConfig(engine=engine, tile=(8, 16),
+                                              k_mcs=3, **kw),
+                          run=RunConfig(length=128, height=64, mcs=7,
+                                        chunk_mcs=7, observables=()),
+                          stop_on_stasis=False, device=device)
+    n_dev = mesh_shape[0] * mesh_shape[1]
+    ops.reset_launches()
+    got = run("sharded_pod", ["cuda:0"] * n_dev, mesh_shape=mesh_shape,
+              local_kernel="fused")
+    counted = ops.launches()
+    if mesh_shape[1] == 1:
+        assert counted["escg_tile_rounds_fused_trials"] == 3 * mesh_shape[0]
+    else:
+        assert counted["escg_tile_round_fused_table"] == 7
+    want = run("pallas_fused", cuda)
+    np.testing.assert_array_equal(got.densities, want.densities)
+    np.testing.assert_array_equal(got.extinction_mcs, want.extinction_mcs)

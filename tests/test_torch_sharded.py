@@ -433,19 +433,22 @@ def test_fused_reproduces_the_golden(shard_grid, k_mcs):
 
 
 def test_fused_runs_k1_per_block_with_global_tile_ids(monkeypatch):
-    """Each MCS of 'fused' on a (2, 2) mesh is one K1 call per block with
-    the block's ``tile_offset`` and the global tile width, the shift done
-    by the halo copies; every count is K4 of one block; no ``torch.roll``
-    runs on the path."""
-    real_round, real_counts, real_roll = (fused.escg_tile_round_fused,
+    """Each MCS of 'fused' on a (2, 2) mesh is one call of K1's table form
+    over the four blocks, each read from the block extended by its halo
+    with the block's ``tile_offset`` and the global tile width; every
+    count is K4 of one block; no ``torch.roll`` runs on the path."""
+    real_table, real_counts, real_roll = (fused.escg_tile_round_fused_table,
                                           density.density_counts,
                                           torch.roll)
     calls, counted, rolls = [], [], [0]
 
-    def recording_round(grid, *args):
-        calls.append((tuple(grid.shape), tuple(args[9]), args[10],
-                      tuple(args[11])))
-        return real_round(grid, *args)
+    def recording_table(sources, seeds, shifts, offsets, block_shape,
+                        *args):
+        calls.append(([tuple(src.shape) for src in sources],
+                      [tuple(off) for off in offsets], tuple(block_shape),
+                      args[7]))
+        return real_table(sources, seeds, shifts, offsets, block_shape,
+                          *args)
 
     def recording_counts(grid, species):
         counted.append(tuple(grid.shape))
@@ -454,7 +457,8 @@ def test_fused_runs_k1_per_block_with_global_tile_ids(monkeypatch):
     def counted_roll(*args, **kwargs):
         rolls[0] += 1
         return real_roll(*args, **kwargs)
-    monkeypatch.setattr(fused, "escg_tile_round_fused", recording_round)
+    monkeypatch.setattr(fused, "escg_tile_round_fused_table",
+                        recording_table)
     monkeypatch.setattr(density, "density_counts", recording_counts)
     monkeypatch.setattr(torch, "roll", counted_roll)
     simulate(make_scenario("park3"),
@@ -463,11 +467,13 @@ def test_fused_runs_k1_per_block_with_global_tile_ids(monkeypatch):
              run=RunConfig(length=64, height=32, mcs=3, chunk_mcs=2,
                            observables=()),
              stop_on_stasis=False, device=_cpus(4))
-    # 32 x 64 in (8, 16) tiles: 4 x 4 global, 2 x 2 per 16 x 32 block
-    assert len(calls) == 4 * 3
-    assert {c[1] for c in calls} == {(0, 0), (0, 2), (2, 0), (2, 2)}
-    assert all(c[0] == (16, 32) and c[2] == 4 and c[3] == (0, 0)
-               for c in calls)
+    # 32 x 64 in (8, 16) tiles: 4 x 4 global, 2 x 2 per 16 x 32 block,
+    # each read with a halo of one tile: (1, 24, 48)
+    assert len(calls) == 3
+    for sources, offsets, block_shape, gw in calls:
+        assert sources == [(1, 24, 48)] * 4
+        assert sorted(offsets) == [(0, 0), (0, 2), (2, 0), (2, 2)]
+        assert block_shape == (16, 32) and gw == 4
     assert counted == [(16, 32)] * (4 * (3 + 1))
     assert rolls[0] == 0
 

@@ -157,10 +157,22 @@ def test_no_device_means_the_card(monkeypatch):
 
 @pytest.mark.parametrize("engine", ["sharded_pod"])
 def test_unported_engines_are_refused(engine):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
-        simulate(make_scenario("park3"), engine=EngineConfig(engine=engine),
-                 run=RunConfig(length=16, height=16, mcs=1, observables=()),
-                 device="cpu")
+    """No engine of the reference is refused any more: ``NOT_PORTED`` is
+    empty, and ``sharded_pod``, the last one ported, runs ``simulate`` as
+    ``sharded`` on its pod group 0's grid."""
+    assert not engines.NOT_PORTED
+    assert engine in engines.engine_names()
+
+    def run(**kw):
+        return simulate(make_scenario("park3"),
+                        engine=EngineConfig(tile=(8, 8), **kw),
+                        run=RunConfig(length=16, height=16, mcs=2,
+                                      observables=()),
+                        device=["cpu"] * 4, stop_on_stasis=False)
+    got = run(engine=engine, mesh_shape=(2, 1, 2))
+    want = run(engine="sharded", shard_grid=(1, 2))
+    np.testing.assert_array_equal(got.grid, want.grid)
+    np.testing.assert_array_equal(got.densities, want.densities)
 
 
 # ------------------------------- convert --------------------------------- #

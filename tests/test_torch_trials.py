@@ -456,14 +456,18 @@ def test_rejects_the_decomposed_engines():
     with pytest.raises(ValueError, match="vmappable"):
         _trials(EscgParams(length=16, height=16, engine="sharded",
                            tile=(8, 8)), dm.RPS(), n_trials=2, n_mcs=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1"):
+    # the composed engine owns its mesh: its pod width is mesh_shape's
+    with pytest.raises(ValueError, match="not trial_devices"):
         run_trials(make_scenario("park3"), n_trials=2,
-                   engine=EngineConfig(engine="sharded_pod"),
+                   engine=EngineConfig(engine="sharded_pod", tile=(8, 8)),
                    run=RunConfig(length=16, height=16, mcs=1),
-                   device="cpu")
+                   device="cpu", trial_devices=1)
     caps = engines.get_engine("sharded").caps
     assert not caps.vmappable and not caps.trial_shardable
     assert not caps.pod_composable
+    caps = engines.get_engine("sharded_pod").caps
+    assert not caps.vmappable and not caps.trial_shardable
+    assert caps.pod_composable
     for name in ("reference", "batched", "sublattice", "pallas",
                  "pallas_fused"):
         caps = engines.get_engine(name).caps
