@@ -62,6 +62,24 @@ each with the launch counts set to 0 just before it and read just after:
   their plain versions at the staging edges (1, 4 and 8 runs of 1, 3 and
   16 trials, halos on both, one and no axes, shifts 0 and tile - 1) and
   at (a)'s shapes.
+* The user's entry points at 3200 x 3200: ``[cli]`` starts ``python -m
+  repro_torch.launch.escg_run`` as a subprocess (park3 on
+  ``pallas_fused``): (a) 20 MCS with ``--save``, its ``state.npz`` lattice
+  and ``densities.csv`` held to ``simulate`` in this process, one K1 and
+  one K4 launch per MCS; (b) ``--resume`` to 30 MCS held to ``simulate``
+  from the saved lattice and ``fold_in(PRNGKey(0), 20)``; (c) (a) with
+  ``--kMcs 10`` (K2) writing (a)'s files; (d) ``--trials 8`` whose
+  ``trials.json`` equals ``run_trials``; (e) the README matrices'
+  ``--check``. ``[serve]`` runs a ``ScenarioServer`` on ``cuda:0``: three
+  park3 ``pallas_fused`` requests (4, 4 and 8 trials; 10, 20 and 20 MCS)
+  packed into one batch of 16 trials with one K1 trial-form and one K4
+  per-trial launch per MCS, each response held to its direct
+  ``run_trials``; a second wave answered from the cache with no engine
+  built; the batch's set-up, MCS and host copies timed apart on the
+  cached entry; one ``sharded_pod`` request on a (2, 2, 2) mesh of
+  ``cuda:0``;
+  ``python -m repro_torch.launch.serve`` on the committed smoke trace with
+  ``--check``; and one request through the HTTP adapter on 127.0.0.1.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -69,13 +87,18 @@ non-zero; without a CUDA card, or without the repository around it, it
 exits non-zero before printing a result. It imports nothing of JAX.
 """
 import contextlib
+import dataclasses
 import hashlib
 import itertools
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
+import urllib.request
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 GOLDEN = os.path.join(HERE, "tests", "golden", "fused_trajectory.json")
@@ -166,6 +189,13 @@ TRIAL_GOLDEN = os.path.join(HERE, "tests", "golden", "trial_result.json")
 POD_MESH, POD_N, POD_MCS = (2, 2, 2), 16, 10
 POD_PALLAS_N, POD_PALLAS_MCS = 8, 3
 POD_EDGE_BLOCK, POD_EDGE_RUNS = (240, 224), (1, 4, 8)
+# the entry points at SIDE: the CLI's runs (20 MCS in chunks of 10, a
+# resume of 10 more, 8 trials of 10 MCS), and the server's three
+# pallas_fused requests (seed, trials, MCS) that pack into one batch of 16,
+# then one sharded_pod request of 8 trials for 5 MCS
+CLI_MCS, CLI_CHUNK, CLI_RESUME, CLI_TRIALS, CLI_TRIAL_MCS = 20, 10, 10, 8, 10
+SRV_REQS, SRV_CHUNK = ((1, 4, 10), (2, 4, 20), (3, 8, 20)), 10
+SRV_POD_N, SRV_POD_MCS = 8, 5
 
 
 def check(cond, what):
@@ -1995,7 +2025,367 @@ def main():
     t1_err, t3_err = max(t1_err, pod_t1_err), max(t3_err, pod_t3_err)
     t4_err = max(t4_err, pod_t4_err)
 
-    # ---- 26. the kernel table ----
+    # ---- 26. [cli] the port's CLI as a user starts it ----
+    # a subprocess of `python -m repro_torch.launch.escg_run` per run, park3
+    # at SIDE on pallas_fused, each held to the same run in this process
+    from repro_torch.core import io as io_mod
+    from repro_torch.core.scenarios import decompose
+    work = tempfile.mkdtemp(prefix="chip_smoke_cli_")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.join(HERE, "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    main_args = ["--scenario", "park3", "--length", str(SIDE), "--height",
+                 str(SIDE), "--engine", "pallas_fused", "--tile",
+                 str(TILE[0]), str(TILE[1]), "--chunkMcs", str(CLI_CHUNK),
+                 "--printLaunches"]
+
+    def cli_run(args, tag):
+        """(stdout, wall s, the run's kernel launches, its ms/MCS)."""
+        t0 = time.perf_counter()
+        out = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.escg_run", *args],
+            capture_output=True, text=True, timeout=600, env=env, cwd=HERE)
+        wall = time.perf_counter() - t0
+        check(out.returncode == 0, f"[cli] {tag} exited {out.returncode}:\n"
+              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+        counts, ms_mcs = None, None
+        for line in out.stdout.splitlines():
+            if line.startswith("[escg] kernel launches "):
+                counts = json.loads(line[len("[escg] kernel launches "):])
+            m = re.search(r"(\d+) MCS in [\d.]+s \(([\d.e+-]+) updates/s",
+                          line)
+            if m:
+                ms_mcs = SIDE * SIDE / float(m.group(2)) * 1e3
+        return out.stdout, wall, counts, ms_mcs
+
+    def saved(d):
+        with np.load(os.path.join(d, "state.npz")) as z:
+            return z["grid"], int(z["mcs"])
+
+    def densities_csv(hist):
+        path = os.path.join(work, "want_densities.csv")
+        io_mod.export_densities_csv(path, hist)
+        with open(path, "rb") as f:
+            return f.read()
+
+    def file_bytes(d, name):
+        with open(os.path.join(d, name), "rb") as f:
+            return f.read()
+
+    def save_s(stdout):
+        m = re.search(r"saved to .* in ([\d.]+)s", stdout)
+        return float(m.group(1)) if m else float("nan")
+
+    # (a) 20 MCS with --save, against simulate in this process
+    dir_a = os.path.join(work, "a")
+    out_a, wall_a, counts_a, ms_a = cli_run(
+        main_args + ["--mcs", str(CLI_MCS), "--save", "true", "--outDir",
+                     dir_a], "(a)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_a = simulate(park3, engine=EngineConfig(engine="pallas_fused",
+                                                tile=TILE),
+                     run=RunConfig(length=SIDE, height=SIDE, mcs=CLI_MCS,
+                                   chunk_mcs=CLI_CHUNK), device=dev)
+    inproc_ms = (time.perf_counter() - t0) / CLI_MCS * 1e3
+    grid_a, mcs_a = saved(dir_a)
+    check(mcs_a == CLI_MCS and np.array_equal(grid_a, ref_a.grid)
+          and file_bytes(dir_a, "densities.csv")
+          == densities_csv(ref_a.densities),
+          "[cli] (a) the CLI's saved lattice or densities differ from "
+          "simulate in this process")
+    check(counts_a["escg_tile_round_fused"] == CLI_MCS
+          and counts_a["density_counts"] == CLI_MCS + 1
+          and sum(counts_a.values()) == 2 * CLI_MCS + 1,
+          f"[cli] (a) did not run through K1 and K4: {counts_a}")
+    print(f"[cli] (a) park3 {SIDE}x{SIDE} pallas_fused --mcs {CLI_MCS} "
+          f"--save: state.npz grid and densities.csv equal simulate's; "
+          f"launches K1 {counts_a['escg_tile_round_fused']}, K4 "
+          f"{counts_a['density_counts']}; the process {wall_a:.2f}s, its "
+          f"run {ms_a:.4f} ms/MCS against {inproc_ms:.4f} in this process; "
+          f"save {save_s(out_a):.3f}s; {card}")
+
+    # (b) --resume to 30 MCS: the saved lattice, key fold_in(PRNGKey(0), 20);
+    # a resumed run saves where the state was saved (params.csv's out_dir),
+    # so (a)'s files are kept aside first
+    dir_b = dir_a
+    dir_a = os.path.join(work, "a_saved")
+    shutil.copytree(dir_b, dir_a)
+    out_b, wall_b, counts_b, ms_b = cli_run(
+        ["--resume", "true", "--mcs", str(CLI_MCS + CLI_RESUME),
+         "--outDir", dir_b, "--printLaunches"], "(b)")
+    p_saved = io_mod.load_state(dir_a)[0]
+    sc_b, eng_b, run_b = decompose(p_saved.replace(mcs=CLI_RESUME))
+    ref_b = simulate(sc_b, park3.dominance(), grid0=grid_a,
+                     key=threefry.fold_in(threefry.PRNGKey(0), CLI_MCS),
+                     engine=eng_b, run=run_b, device=dev)
+    grid_b, mcs_b = saved(dir_b)
+    check(mcs_b == CLI_MCS + CLI_RESUME and np.array_equal(grid_b, ref_b.grid)
+          and file_bytes(dir_b, "densities.csv")
+          == densities_csv(ref_b.densities),
+          "[cli] (b) the resumed run differs from simulate(grid0=saved, "
+          "key=fold_in(PRNGKey(0), 20))")
+    print(f"[cli] (b) --resume true --mcs {CLI_MCS + CLI_RESUME}: equals "
+          f"simulate from the saved lattice and fold_in(PRNGKey(0), "
+          f"{CLI_MCS}) for {CLI_RESUME} MCS; the process {wall_b:.2f}s, its "
+          f"run {ms_b:.4f} ms/MCS")
+
+    # (c) (a) with --kMcs 10: K2, the same files
+    dir_c = os.path.join(work, "c")
+    out_c, wall_c, counts_c, ms_c = cli_run(
+        main_args + ["--mcs", str(CLI_MCS), "--save", "true", "--outDir",
+                     dir_c, "--kMcs", str(K_MCS)], "(c)")
+    same_c = all(file_bytes(dir_a, n) == file_bytes(dir_c, n)
+                 for n in ("grid.csv", "densities.csv", "dominance.csv"))
+    pa, pc = (json.loads(file_bytes(d, "params.csv")) for d in (dir_a, dir_c))
+    for d in (pa, pc):
+        d.pop("out_dir"), d.pop("k_mcs")
+    check(same_c and pa == pc and np.array_equal(saved(dir_c)[0], grid_a),
+          f"[cli] (c) --kMcs {K_MCS} wrote other files than (a)")
+    check(counts_c["escg_tile_rounds_fused"] == CLI_MCS // K_MCS
+          and counts_c["escg_tile_round_fused"] == 0
+          and counts_c["density_counts"] == 1,
+          f"[cli] (c) did not run through K2: {counts_c}")
+    print(f"[cli] (c) --kMcs {K_MCS}: grid.csv, densities.csv, state.npz "
+          f"equal (a)'s; launches K2 {counts_c['escg_tile_rounds_fused']}, "
+          f"K4 {counts_c['density_counts']}; the process {wall_c:.2f}s, its "
+          f"run {ms_c:.4f} ms/MCS; save {save_s(out_c):.3f}s")
+
+    # (d) --trials 8: trials.json equals a direct run_trials
+    dir_d = os.path.join(work, "d")
+    out_d, wall_d, counts_d, _ = cli_run(
+        main_args + ["--mcs", str(CLI_TRIAL_MCS), "--trials",
+                     str(CLI_TRIALS), "--save", "true", "--outDir", dir_d],
+        "(d)")
+    ref_d = trials.run_trials(
+        park3, n_trials=CLI_TRIALS,
+        engine=EngineConfig(engine="pallas_fused", tile=TILE),
+        run=RunConfig(length=SIDE, height=SIDE, mcs=CLI_TRIAL_MCS,
+                      chunk_mcs=CLI_CHUNK), device=dev)
+    check(json.loads(file_bytes(dir_d, "trials.json"))
+          == json.loads(ref_d.to_json()),
+          "[cli] (d) trials.json differs from a direct run_trials")
+    check(counts_d["escg_tile_round_fused_trials"] == CLI_TRIAL_MCS
+          and counts_d["density_counts_trials"] == CLI_TRIAL_MCS + 1,
+          f"[cli] (d) did not run K1 and K4 over the trials: {counts_d}")
+    print(f"[cli] (d) --trials {CLI_TRIALS} --mcs {CLI_TRIAL_MCS}: "
+          f"trials.json equals run_trials; launches {counts_d}; the process "
+          f"{wall_d:.2f}s")
+
+    # (e) the registry matrices against README.md
+    out_e, wall_e, _, _ = cli_run(["--listEngines", "--listScenarios",
+                                   "--check", "README.md"], "(e)")
+    check("engine matrix matches" in out_e
+          and "scenario matrix matches" in out_e,
+          f"[cli] (e) the README check said: {out_e}")
+    print(f"[cli] (e) --listEngines --listScenarios --check README.md: exit "
+          f"0 ({wall_e:.2f}s)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 27. [serve] the scenario server on the card ----
+    from repro_torch.serve import ScenarioServer, SimRequest
+    from repro_torch.serve.httpd import serve_http
+    srv = ScenarioServer(device="cuda:0")
+    fused_eng = {"engine": "pallas_fused", "tile": list(TILE)}
+
+    def sreq(seed, n, mcs, rid, engine=fused_eng):
+        return SimRequest("park3", engine=engine,
+                          run={"length": SIDE, "height": SIDE, "mcs": mcs,
+                               "chunk_mcs": SRV_CHUNK, "seed": seed},
+                          n_trials=n, id=rid)
+
+    def direct(req, device="cuda:0"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = trials.run_trials(req.scenario, n_trials=req.n_trials,
+                              engine=req.engine, run=req.run, device=device)
+        return r, time.perf_counter() - t0
+
+    def same_result(a, b):
+        return json.loads(a.to_json()) == json.loads(b.to_json())
+
+    wave = [sreq(seed, n, mcs, f"s{i}")
+            for i, (seed, n, mcs) in enumerate(SRV_REQS)]
+    n_batch = sum(n for _, n, _ in SRV_REQS)
+    mcs_batch = max(mcs for _, _, mcs in SRV_REQS)
+    trial_mcs = sum(n * mcs for _, n, mcs in SRV_REQS)
+    builds0 = engines.BUILDS
+    ops.reset_launches()
+    resp1 = srv.serve(wave)
+    launches["serve"] = counted = ops.launches()
+    srv_builds = engines.BUILDS - builds0
+    acct = srv.accounting()
+    check(all(r.ok for r in resp1), f"[serve] a request failed: "
+          f"{[r.error for r in resp1 if not r.ok]}")
+    check(acct["batches"] == 1 and acct["packed_trials"] == n_batch,
+          f"[serve] the three requests did not pack into one batch of "
+          f"{n_batch} trials: {acct['batches']} batches, "
+          f"{acct['packed_trials']} trials")
+    check(counted["escg_tile_round_fused_trials"] == mcs_batch
+          and counted["density_counts_trials"] == mcs_batch + 1
+          and sum(counted.values()) == 2 * mcs_batch + 1,
+          f"[serve] the batch did not run one K1 trial-form and one K4 "
+          f"per-trial launch per MCS: {counted}")
+    direct_s = 0.0
+    for req, resp in zip(wave, resp1):
+        ref, took = direct(req)
+        direct_s += took
+        check(same_result(resp.result, ref), f"[serve] {req.id} differs "
+              f"from its direct run_trials")
+    run_s = resp1[0].timing["run_s"]
+    miss_s = resp1[0].timing["compile_s"]
+    print(f"[serve] park3 {SIDE}x{SIDE} pallas_fused, requests of "
+          f"{[n for _, n, _ in SRV_REQS]} trials x "
+          f"{[m for _, _, m in SRV_REQS]} MCS: one batch of {n_batch} "
+          f"trials, launches {counted}; every response equals its direct "
+          f"run_trials; the batch {run_s:.3f}s = "
+          f"{run_s / (n_batch * mcs_batch) * 1e3:.4f} ms per trial-MCS run "
+          f"({run_s / trial_mcs * 1e3:.4f} per trial-MCS asked), the direct "
+          f"runs {direct_s:.3f}s = {direct_s / trial_mcs * 1e3:.4f} ms per "
+          f"trial-MCS; engine builds {srv_builds}; {card}")
+
+    # the same requests again: cache hits, no engine built
+    builds1 = engines.BUILDS
+    wave2 = [dataclasses.replace(r, id=r.id + "-w2") for r in wave]
+    resp2 = srv.serve(wave2)
+    acct2 = srv.accounting()
+    check(all(r.ok and r.cache_hit for r in resp2)
+          and engines.BUILDS == builds1
+          and acct2["cache"]["hits"] == acct["cache"]["hits"] + 1
+          and acct2["cache"]["misses"] == acct["cache"]["misses"],
+          f"[serve] the second wave was not answered from the cache "
+          f"without a build: {acct2['cache']}, builds "
+          f"{engines.BUILDS - builds1}")
+    for a, b in zip(resp1, resp2):
+        check(same_result(a.result, b.result), "[serve] the second wave's "
+              "results differ from the first's")
+    lat = acct2["latency"]["total"]
+    print(f"[serve] second wave: {len(resp2)} cache hits, no engine built; "
+          f"cache miss (the engine build; the kernels' libraries were "
+          f"loaded by earlier phases) {miss_s * 1e3:.3f} ms against a "
+          f"hit's {resp2[0].timing['compile_s'] * 1e3:.3f} ms; batch "
+          f"{resp2[0].timing['run_s']:.3f}s; request latency p50 "
+          f"{lat['p50_s']:.3f}s, p95 {lat['p95_s']:.3f}s over "
+          f"{lat['count']}; {card}")
+
+    # where the packed batch's wall goes: its set-up (the trials' lattice
+    # draws and first counts), its MCS (the chunks) and the host copies
+    # after each chunk, run apart on the cached entry's unit with a sync
+    # after each part
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    entry = next(iter(srv._cache._entries.values()))
+    unit, pipe = entry.units[0], entry.pipe
+    tkeys = torch.cat([trials.fold_trial_keys(threefry.PRNGKey(seed), n)
+                       for seed, n, _ in SRV_REQS])
+    (g, k), setup_s = timed(lambda: unit.init(tkeys))
+    _, t = timed(lambda: unit.built.counts_batch(
+        g, entry.params.species).cpu())
+    setup_s += t
+    mcs_s = copy_s = 0.0
+    if pipe is not None:
+        ring, pos = obs.ring_init(obs.ring_capacity(entry.params, SRV_CHUNK),
+                                  (n_batch, pipe.width), dev)
+    for _ in range(mcs_batch // SRV_CHUNK):
+        if pipe is not None:
+            out, t = timed(lambda: unit.chunk(g, k, ring, pos, SRV_CHUNK))
+            g, k, ring, pos = out[:4]
+        else:
+            out, t = timed(lambda: unit.chunk(g, k, SRV_CHUNK))
+            g, k = out[:2]
+        mcs_s += t
+        parts = [x for x in out[2:] if isinstance(x, torch.Tensor)]
+        _, t = timed(lambda: [x.cpu() for x in parts])
+        copy_s += t
+    print(f"[serve] the batch's parts run apart ({n_batch} trials, "
+          f"{mcs_batch} MCS in chunks of {SRV_CHUNK}, observables "
+          f"{'on' if pipe is not None else 'off'}): set-up (draws and first "
+          f"counts) {setup_s:.4f}s, MCS {mcs_s:.4f}s = "
+          f"{mcs_s / mcs_batch * 1e3:.4f} ms per batch-MCS, host copies "
+          f"{copy_s:.4f}s; sum {setup_s + mcs_s + copy_s:.4f}s against the "
+          f"served batch's {run_s:.4f}s; {card}")
+
+    # one sharded_pod request on a (2, 2, 2) mesh of cuda:0
+    pod_srv = ScenarioServer(device=pod_devs)
+    pod_eng = {"engine": "sharded_pod", "mesh_shape": list(POD_MESH),
+               "local_kernel": "fused", "tile": list(TILE)}
+    pod_req = sreq(4, SRV_POD_N, SRV_POD_MCS, "pod1", engine=pod_eng)
+    ops.reset_launches()
+    pod_resp = pod_srv(pod_req)
+    launches["serve_pod"] = counted = ops.launches()
+    check(pod_resp.ok, f"[serve] sharded_pod request failed: "
+          f"{pod_resp.error}")
+    pod_ref, _ = direct(pod_req, pod_devs)
+    check(same_result(pod_resp.result, pod_ref),
+          "[serve] the sharded_pod response differs from its direct "
+          "run_trials")
+    check(counted["escg_tile_round_fused_table"] == SRV_POD_MCS
+          and counted["density_counts_sharded_trials"] == SRV_POD_MCS + 1,
+          f"[serve] sharded_pod did not run one K1 table and one K4s "
+          f"per-trial launch per MCS: {counted}")
+    print(f"[serve] sharded_pod {POD_MESH} of cuda:0, {SRV_POD_N} trials x "
+          f"{SRV_POD_MCS} MCS: equals its direct run_trials; launches "
+          f"{counted}; batch {pod_resp.timing['run_s']:.3f}s")
+
+    # the committed smoke trace through the serve entry point, on the card
+    report_path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_srv_"),
+                               "report.json")
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--trace",
+         os.path.join("examples", "traces", "smoke.jsonl"), "--waves", "2",
+         "--check", "--report", report_path],
+        capture_output=True, text=True, timeout=600, env=env, cwd=HERE)
+    check(out.returncode == 0, f"[serve] the smoke trace's --check failed "
+          f"(exit {out.returncode}):\n{out.stdout[-2000:]}\n"
+          f"{out.stderr[-2000:]}")
+    with open(report_path) as f:
+        rep = json.load(f)
+    shutil.rmtree(os.path.dirname(report_path), ignore_errors=True)
+    check(rep["backend"] == "cuda"
+          and rep["cache"]["misses"] == rep["cache"]["hits"]
+          and rep["dropped"] == 0, f"[serve] smoke report: {rep['cache']}")
+    print(f"[serve] examples/traces/smoke.jsonl --waves 2 --check on the "
+          f"card: exit 0, {rep['n_requests']} requests, cache "
+          f"{rep['cache']['hits']}H/{rep['cache']['misses']}M (the second "
+          f"wave all hits), "
+          f"{rep['requests_per_s']:.2f} req/s, latency p50 "
+          f"{rep['latency']['total']['p50_s']:.4f}s; the process "
+          f"{time.perf_counter() - t0:.2f}s")
+
+    # one request through the HTTP adapter on 127.0.0.1
+    httpd, _ = serve_http(srv, host="127.0.0.1", port=0, background=True)
+    try:
+        base = "http://127.0.0.1:%d" % httpd.server_address[1]
+        http_req = sreq(5, 2, SRV_CHUNK, "http1")
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/submit", data=http_req.to_json().encode(),
+                method="POST"), timeout=60) as f:
+            check(json.loads(f.read()) == {"ids": ["http1"]},
+                  "[serve] /submit")
+        with urllib.request.urlopen(urllib.request.Request(
+                base + "/drain", data=b"", method="POST"),
+                timeout=600) as f:
+            json.loads(f.read())
+        with urllib.request.urlopen(base + "/response?id=http1",
+                                    timeout=60) as f:
+            wire = json.loads(f.read())
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+    http_ref, _ = direct(http_req)
+    check(wire["ok"] and wire["cache_hit"]
+          and wire["result"] == json.loads(http_ref.to_json()),
+          "[serve] the HTTP response differs from its direct run_trials")
+    print("[serve] one request through the HTTP adapter on 127.0.0.1: a "
+          "cache hit, equal to its direct run_trials")
+
+    # ---- 28. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,

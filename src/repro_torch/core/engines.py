@@ -119,10 +119,11 @@ class BuiltEngine(NamedTuple):
     counts_batch: Callable[[torch.Tensor, int], torch.Tensor] = _trial_counts
     # the composed pod x grid mesh (sharded_pod): the trials per launch
     # unit come in multiples of pod_width, init_batch(trial keys (n, 2)) ->
-    # (the batch on the mesh, run keys (n, 2) on the host), and the mesh
+    # (the batch on the mesh, run keys (n, 2) on the host)
     pod_width: int = 1
     init_batch: Optional[Callable[[torch.Tensor],
                                   Tuple[Any, torch.Tensor]]] = None
+    # the device mesh of a multi_device engine (LatticeMesh or PodMesh)
     mesh: Any = None
 
 
@@ -147,6 +148,8 @@ class EngineCaps:
                                # (local_kernel, oracle) overrides: a local
                                # kernel with its own PRNG scheme belongs to
                                # another family ('fused' -> 'pallas_fused')
+    description: str = ""
+    paper: str = ""            # paper algorithm / figure it reproduces
 
     @property
     def pod_composable(self) -> bool:
@@ -163,6 +166,17 @@ class EngineCaps:
             if lk == local_kernel:
                 return oracle
         return self.equiv_oracle
+
+    @property
+    def trial_axis(self) -> str:
+        """Human-readable trial-axis support (engine matrix column)."""
+        if self.pod_composable:
+            return "pod×grid composed mesh"
+        if self.vmappable and self.trial_shardable:
+            return "pod-sharded vmap"
+        if self.vmappable:
+            return "vmap (1 device)"
+        return "—"
 
 
 @dataclass(frozen=True)
@@ -189,6 +203,10 @@ def register(name: str, caps: EngineCaps):
 
 def engine_names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
+
+
+def engine_specs() -> Tuple[EngineSpec, ...]:
+    return tuple(_REGISTRY.values())
 
 
 def get_engine(name: str) -> EngineSpec:
@@ -256,6 +274,11 @@ def validate_params(p: "EscgParams") -> None:
             raise ValueError("mesh_shape dims must be >= 1")
 
 
+# engines built in this process: the serving cache reads it to show that
+# a repeat bucket builds nothing again
+BUILDS = 0
+
+
 def build(params, dom=None, device: Optional[Devices] = None
           ) -> BuiltEngine:
     """Resolve ``params.engine`` (an ``EscgParams`` or a ``Scenario``) and
@@ -277,6 +300,8 @@ def build(params, dom=None, device: Optional[Devices] = None
         from . import dominance as dom_mod
         dom = dom_mod.circulant(params.species)
     dom = torch.as_tensor(dom, dtype=torch.float32).to(dev).contiguous()
+    global BUILDS
+    BUILDS += 1
     return spec.build(params, dom, where)
 
 
@@ -312,7 +337,9 @@ def _trial_groups(n_trials: int, per_trial: int):
             for a in range(0, n_trials, size)]
 
 
-@register("reference", EngineCaps())
+@register("reference", EngineCaps(
+    description="sequential oracle; one proposal at a time via lax.scan",
+    paper="Algorithm 3.2/3.3 (single-threaded baseline)"))
 def _build_reference(p: "EscgParams", dom: torch.Tensor,
                      device: torch.device) -> BuiltEngine:
     """Sequential oracle (E1, Algorithm 3.2/3.3, the single-threaded
@@ -345,7 +372,9 @@ def _build_reference(p: "EscgParams", dom: torch.Tensor,
                        one_mcs_batch=one_mcs_batch)
 
 
-@register("batched", EngineCaps())
+@register("batched", EngineCaps(
+    description="scatter-min conflict arbitration over proposal sub-batches",
+    paper="Algorithm 3.5/3.6 (CUDA port, E2)"))
 def _build_batched(p: "EscgParams", dom: torch.Tensor,
                    device: torch.device) -> BuiltEngine:
     """Scatter-min conflict arbitration over proposal sub-batches (E2,
@@ -451,50 +480,6 @@ def tiled_round_inputs(key: torch.Tensor, th: int, tw: int):
     return threefry.key_data(kp), round_shift(ks, th, tw)
 
 
-@register("pallas_fused", EngineCaps(flux_only=True, tiled=True,
-                                     multi_mcs=True))
-def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
-                        device: torch.device) -> BuiltEngine:
-    """Sublattice sweep with in-kernel Philox proposals (the paper's
-    numRandoms buffer of §3.2.1 eliminated): CUDA kernel K1 for one MCS,
-    K2 for k_mcs MCS per launch."""
-    from ..kernels import ops as kernel_ops  # kernels import core modules
-    t_eps, t_eps_mu = p.action_thresholds()
-    th, tw, n_tiles, k_per_tile, _ = _tiled_setup(p)
-    dirs = torch.as_tensor(DIRS, dtype=torch.int32).to(device)
-    attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
-                            device=device)
-
-    def schedule(key, n_mcs):
-        return multi_round_inputs(key, th, tw, n_mcs)
-
-    def one_mcs(grid, seed, shift):
-        return kernel_ops.escg_round_fused(
-            grid, seed, 0, shift, dom, dirs, p.tile, k_per_tile, t_eps,
-            t_eps_mu, p.neighbourhood, roll_back=False), attempts
-
-    def one_mcs_batch(grids, seeds, shifts):
-        return kernel_ops.escg_round_fused_trials(
-            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
-            t_eps_mu, p.neighbourhood), attempts.expand(grids.shape[0])
-
-    def multi_mcs(grid, seeds, shifts):
-        return kernel_ops.escg_rounds_fused(
-            grid, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
-            t_eps_mu, p.species, p.neighbourhood)
-
-    def multi_mcs_batch(grids, seeds, shifts):
-        return kernel_ops.escg_rounds_fused_trials(
-            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
-            t_eps_mu, p.species, p.neighbourhood)
-
-    return BuiltEngine(schedule, one_mcs,
-                       attempts_per_mcs=n_tiles * k_per_tile, device=device,
-                       multi_mcs=multi_mcs, schedule_batch=schedule,
-                       one_mcs_batch=one_mcs_batch,
-                       multi_mcs_batch=multi_mcs_batch)
-
-
 def _build_tiled(p: "EscgParams", device: torch.device,
                  run_round: Callable, run_round_batch: Callable
                  ) -> BuiltEngine:
@@ -549,7 +534,10 @@ def _build_tiled(p: "EscgParams", device: torch.device,
                        one_mcs_batch=one_mcs_batch)
 
 
-@register("sublattice", EngineCaps(flux_only=True, tiled=True))
+@register("sublattice", EngineCaps(
+    flux_only=True, tiled=True,
+    description="shifted-window synchronous sublattice, pure jnp (E3)",
+    paper="maxStep §4.2.4 redesigned for tiles (Fig 4.3)"))
 def _build_sublattice(p: "EscgParams", dom: torch.Tensor,
                       device: torch.device) -> BuiltEngine:
     """Shifted-window synchronous sublattice in plain PyTorch (E3): the
@@ -567,8 +555,10 @@ def _build_sublattice(p: "EscgParams", dom: torch.Tensor,
     return _build_tiled(p, device, run_round, run_round_batch)
 
 
-@register("pallas", EngineCaps(flux_only=True, tiled=True,
-                               equiv_oracle="sublattice"))
+@register("pallas", EngineCaps(
+    flux_only=True, tiled=True, equiv_oracle="sublattice",
+    description="sublattice round as a Pallas TPU kernel (VMEM-resident)",
+    paper="maxStep §4.2.4, kernelized (Fig 4.3)"))
 def _build_pallas(p: "EscgParams", dom: torch.Tensor,
                   device: torch.device) -> BuiltEngine:
     """The sublattice round as the CUDA kernel K3: one-warp blocks that
@@ -589,11 +579,61 @@ def _build_pallas(p: "EscgParams", dom: torch.Tensor,
     return _build_tiled(p, device, run_round, run_round_batch)
 
 
+@register("pallas_fused", EngineCaps(
+    flux_only=True, tiled=True, multi_mcs=True,
+    description="Pallas kernel with in-kernel Philox proposal derivation "
+                "(zero proposal HBM traffic)",
+    paper="numRandoms buffer §3.2.1 eliminated (Fig 4.2)"))
+def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
+                        device: torch.device) -> BuiltEngine:
+    """Sublattice sweep with in-kernel Philox proposals (the paper's
+    numRandoms buffer of §3.2.1 eliminated): CUDA kernel K1 for one MCS,
+    K2 for k_mcs MCS per launch."""
+    from ..kernels import ops as kernel_ops  # kernels import core modules
+    t_eps, t_eps_mu = p.action_thresholds()
+    th, tw, n_tiles, k_per_tile, _ = _tiled_setup(p)
+    dirs = torch.as_tensor(DIRS, dtype=torch.int32).to(device)
+    attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
+                            device=device)
+
+    def schedule(key, n_mcs):
+        return multi_round_inputs(key, th, tw, n_mcs)
+
+    def one_mcs(grid, seed, shift):
+        return kernel_ops.escg_round_fused(
+            grid, seed, 0, shift, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.neighbourhood, roll_back=False), attempts
+
+    def one_mcs_batch(grids, seeds, shifts):
+        return kernel_ops.escg_round_fused_trials(
+            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.neighbourhood), attempts.expand(grids.shape[0])
+
+    def multi_mcs(grid, seeds, shifts):
+        return kernel_ops.escg_rounds_fused(
+            grid, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.species, p.neighbourhood)
+
+    def multi_mcs_batch(grids, seeds, shifts):
+        return kernel_ops.escg_rounds_fused_trials(
+            grids, seeds, shifts, dom, dirs, p.tile, k_per_tile, t_eps,
+            t_eps_mu, p.species, p.neighbourhood)
+
+    return BuiltEngine(schedule, one_mcs,
+                       attempts_per_mcs=n_tiles * k_per_tile, device=device,
+                       multi_mcs=multi_mcs, schedule_batch=schedule,
+                       one_mcs_batch=one_mcs_batch,
+                       multi_mcs_batch=multi_mcs_batch)
+
+
 @register("sharded", EngineCaps(
     flux_only=True, tiled=True, multi_device=True, vmappable=False,
     trial_shardable=False, mesh_axes=("rows", "cols"),
     local_kernels=("jnp", "pallas", "fused"), multi_mcs=True,
-    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),)))
+    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),),
+    description="domain-decomposed across devices: shard_map + ppermute "
+                "halo exchange, per-tile Philox streams, psum stasis counts",
+    paper="size scaling beyond one device (Fig 4.3, L=3200)"))
 def _build_sharded(p: "EscgParams", dom: torch.Tensor,
                    devices: Tuple[torch.device, ...]) -> BuiltEngine:
     """Domain decomposition over a ('rows', 'cols') device mesh: halo
@@ -608,7 +648,11 @@ def _build_sharded(p: "EscgParams", dom: torch.Tensor,
     flux_only=True, tiled=True, multi_device=True, vmappable=False,
     trial_shardable=False, mesh_axes=("pod", "rows", "cols"),
     local_kernels=("jnp", "pallas", "fused"), multi_mcs=True,
-    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),)))
+    equiv_oracle="sublattice", equiv_oracles=(("fused", "pallas_fused"),),
+    description="composed trial x grid mesh: IID trials sharded over "
+                "'pod', each lattice halo-exchanged over ('rows','cols'); "
+                "same per-tile streams as sharded",
+    paper="mass replication of large lattices (Fig 4.3 x Table 4.2)"))
 def _build_sharded_pod(p: "EscgParams", dom: torch.Tensor,
                        devices: Tuple[torch.device, ...]) -> BuiltEngine:
     """IID trials over a ('pod', 'rows', 'cols') mesh, each trial's

@@ -2,16 +2,20 @@
 
 The same fields, defaults and JSON form as the reference's ``EscgParams``
 (paper Tables 3.1 and 3.2 plus the engine knobs of DESIGN.md §2), so a
-params document written by either package loads in the other.
+params document written by either package loads in the other, and the
+same command-line flags (``add_cli_args``, ``params_from_args``), so the
+port's ``escg_run`` takes the reference's arguments.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import json
+import re
 from dataclasses import dataclass
 from typing import Optional, Tuple
 
-from .engines import validate_params as _validate_engine
+from .engines import engine_names, validate_params as _validate_engine
 
 
 @dataclass(frozen=True)
@@ -68,6 +72,18 @@ class EscgParams:
             raise ValueError("mu + sigma + epsilon must be positive")
         return self.eps / total, (self.eps + self.mu) / total
 
+    @property
+    def proposals_per_round(self) -> int:
+        n = self.num_randoms if self.num_randoms > 0 else self.n_cells
+        if not self.max_step:
+            n = min(n, self.n_cells)
+        # paper: numRandoms = (numRandoms / N) * N  (whole MCS)
+        return max(self.n_cells, (n // self.n_cells) * self.n_cells)
+
+    @property
+    def mcs_per_round(self) -> int:
+        return self.proposals_per_round // self.n_cells
+
     def validate(self) -> "EscgParams":
         if self.neighbourhood not in (4, 8):
             raise ValueError("neighbourhood must be 4 or 8")
@@ -98,3 +114,114 @@ class EscgParams:
 
     def replace(self, **kw) -> "EscgParams":
         return dataclasses.replace(self, **kw)
+
+    @classmethod
+    def from_scenario(cls, scenario, engine_config=None,
+                      run_config=None) -> "EscgParams":
+        """Compose a ``Scenario`` (and optional ``EngineConfig`` and
+        ``RunConfig``) into the flat params, as ``scenarios.compose``."""
+        from .scenarios import compose  # scenarios imports this module
+        return compose(scenario, engine_config, run_config)
+
+    def to_scenario(self, name: str = ""):
+        """Split into ``(Scenario, EngineConfig, RunConfig)``:
+        ``EscgParams.from_scenario(*p.to_scenario()) == p``."""
+        from .scenarios import decompose  # scenarios imports this module
+        return decompose(self, name=name)
+
+
+def _mesh_shape(s: str) -> Tuple[int, int, int]:
+    """Parse ``--meshShape P,R,C`` (also 'PxRxC')."""
+    parts = [x for x in re.split(r"[,x]", s) if x]
+    if len(parts) != 3:
+        raise argparse.ArgumentTypeError(
+            f"meshShape must be P,R,C (three ints), got {s!r}")
+    return tuple(int(x) for x in parts)
+
+
+def add_cli_args(p: argparse.ArgumentParser) -> None:
+    """The reference's flags, names, defaults and choices; ``--engine``
+    offers the port's registered engines."""
+    b = lambda s: s.lower() in ("1", "true", "yes")  # noqa: E731
+    p.add_argument("--length", type=int, default=200)
+    p.add_argument("--height", type=int, default=200)
+    p.add_argument("--mcs", type=int, default=100_000)
+    p.add_argument("--neighbourhood", type=int, default=4, choices=(4, 8))
+    p.add_argument("--printFrequency", dest="print_frequency", type=int,
+                   default=200)
+    p.add_argument("--mobility", type=float, default=3e-5)
+    p.add_argument("--species", type=int, default=3)
+    p.add_argument("--flux", type=b, default=True)
+    p.add_argument("--empty", type=float, default=0.0)
+    p.add_argument("--save", type=b, default=False)
+    p.add_argument("--dominance", type=str, default="",
+                   help="path to dominance .csv (paper --dominance)")
+    p.add_argument("--resume", type=b, default=False)
+    p.add_argument("--numRandoms", dest="num_randoms", type=int, default=0)
+    p.add_argument("--maxStep", dest="max_step", type=b, default=False)
+    p.add_argument("--mu", type=float, default=1.0)
+    p.add_argument("--sigma", type=float, default=1.0)
+    p.add_argument("--epsilon", type=float, default=None)
+    p.add_argument("--engine", type=str, default="batched",
+                   choices=engine_names())
+    p.add_argument("--cellDtype", dest="cell_dtype", type=str,
+                   default="int32", choices=("int8", "int16", "int32"))
+    p.add_argument("--tile", type=int, nargs=2, default=(8, 32))
+    p.add_argument("--shardGrid", dest="shard_grid", type=int, nargs=2,
+                   default=None,
+                   help="(rows, cols) device grid for engine=sharded; "
+                        "omit to auto-factor all devices")
+    p.add_argument("--meshShape", dest="mesh_shape", type=_mesh_shape,
+                   default=None, metavar="P,R,C",
+                   help="composed (pod, rows, cols) device mesh for "
+                        "engine=sharded_pod: --trials shard over the pod "
+                        "axis, each lattice over (rows, cols); omit to put "
+                        "all devices on the pod axis")
+    p.add_argument("--localKernel", dest="local_kernel", type=str,
+                   default="jnp", choices=("jnp", "pallas", "fused"),
+                   help="tile sweep on every block of the sharded "
+                        "engines: jnp (plain) and pallas (K3) are "
+                        "bit-identical to each other; fused derives "
+                        "proposals in-kernel from Philox counters (K1, "
+                        "bit-identical to --engine pallas_fused)")
+    p.add_argument("--kMcs", dest="k_mcs", type=int, default=1,
+                   help="Monte-Carlo steps fused into one kernel launch "
+                        "(K2; fused-Philox engines only, bit-identical to "
+                        "--kMcs 1)")
+    p.add_argument("--observables", type=str, default=None,
+                   help="comma-separated streaming observables computed "
+                        "on the device into a ring (DESIGN.md §11), e.g. "
+                        "'densities,interface_length'; 'none' disables; "
+                        "default: off (with --scenario, the preset's "
+                        "ScenarioCaps.observables)")
+    p.add_argument("--obsCapacity", dest="obs_capacity", type=int,
+                   default=0,
+                   help="observable ring capacity in rows; 0 = auto (one "
+                        "chunk, lossless)")
+    p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--chunkMcs", dest="chunk_mcs", type=int, default=100)
+    p.add_argument("--outDir", dest="out_dir", type=str, default="escg_out")
+
+
+def parse_observables(s: Optional[str]) -> Optional[Tuple[str, ...]]:
+    """``--observables`` string -> tuple ('none'/'' -> (), None -> None:
+    the flag was not given, defer to the scenario or the default)."""
+    if s is None:
+        return None
+    s = s.strip()
+    if not s or s.lower() == "none":
+        return ()
+    return tuple(x.strip() for x in s.split(",") if x.strip())
+
+
+def params_from_args(args: argparse.Namespace) -> EscgParams:
+    fields = {f.name for f in dataclasses.fields(EscgParams)}
+    kw = {k: v for k, v in vars(args).items() if k in fields and v is not None}
+    if "tile" in kw:
+        kw["tile"] = tuple(kw["tile"])
+    if "observables" in kw:
+        kw["observables"] = parse_observables(kw["observables"]) or ()
+    for k in ("shard_grid", "mesh_shape"):
+        if kw.get(k) is not None:
+            kw[k] = tuple(kw[k])
+    return EscgParams(**kw).validate()

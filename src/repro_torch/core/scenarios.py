@@ -7,10 +7,13 @@
 
 ``compose`` assembles the three into ``EscgParams`` and ``decompose``
 splits one back; ``scenario_key`` hashes a scenario's physics. The JSON
-forms are the reference's, field for field. The presets ported so far are
-``park3``, the parametric ``nspecies`` family and the trial studies'
-``zhong_density``, ``probabilistic`` (Park's eight species) and
-``asym_rps``.
+forms are the reference's, field for field. The presets are the
+reference's, registered in its order with its capability texts (the
+README's scenario matrix is generated from them): ``park3``,
+``zhong_density``, the parametric ``nspecies`` family, ``probabilistic``
+(Park's eight species) and ``asym_rps``. ``scenario_from_cli``,
+``engine_config_from_args`` and ``run_config_from_args`` bridge the
+command line (``launch/escg_run.py``).
 """
 from __future__ import annotations
 
@@ -27,13 +30,15 @@ import numpy as np
 from . import dominance as dom_mod
 from .engines import get_engine
 from .observables import observable_names
-from .params import EscgParams
+from .params import EscgParams, parse_observables
 
 __all__ = [
     "Scenario", "ScenarioCaps", "ScenarioSpec", "EngineConfig", "RunConfig",
-    "register_scenario", "scenario_names", "make_scenario",
-    "compose", "decompose", "resolve_config", "scenario_key",
-    "scenario_observables",
+    "register_scenario", "scenario_names", "scenario_specs", "get_scenario",
+    "make_scenario", "compose", "decompose", "resolve_config",
+    "scenario_key", "scenario_observables", "scenario_from_cli",
+    "engine_config_from_args", "run_config_from_args",
+    "SCENARIO_CLI_FIELDS",
 ]
 
 BOUNDARIES = ("flux", "reflect")   # periodic torus | reflecting walls
@@ -178,9 +183,15 @@ class RunConfig:
 
 @dataclass(frozen=True)
 class ScenarioCaps:
-    """Static capability metadata of a preset."""
+    """Static capability metadata of a preset, read by validation and the
+    scenario matrix."""
     species: Optional[int] = None  # fixed species count; None = parametric
+    rates: str = "deterministic"   # dominance entries: {0,1} or [0,1] rates
+    boundary: str = "flux"         # boundary condition the study assumes
+    init: str = "uniform"          # initial-condition sampler family
     observables: Tuple[str, ...] = ()  # the statistics the study reads
+    description: str = ""
+    paper: str = ""                # study / figure the preset reproduces
 
 
 @dataclass(frozen=True)
@@ -210,6 +221,10 @@ def scenario_names() -> Tuple[str, ...]:
     return tuple(_REGISTRY)
 
 
+def scenario_specs() -> Tuple[ScenarioSpec, ...]:
+    return tuple(_REGISTRY.values())
+
+
 _PARAMETRIC = re.compile(r"^([A-Za-z_]+?)(\d+)$")
 
 
@@ -234,6 +249,10 @@ def _spec_for(name: str) -> Optional[ScenarioSpec]:
         return _resolve_name(name)[0]
     except ValueError:
         return None
+
+
+def get_scenario(name: str) -> ScenarioSpec:
+    return _resolve_name(name)[0]
 
 
 def make_scenario(name: str, **overrides) -> Scenario:
@@ -360,44 +379,96 @@ def scenario_observables(name: str) -> Tuple[str, ...]:
     return tuple(o for o in spec.caps.observables if o in streams)
 
 
+# ------------------------------ CLI bridging ------------------------------- #
+
+# Scenario-owned CLI fields: with --scenario these come from the preset
+# unless the flag is given with a value other than the parser's default
+# (a flag re-passed at its default defers to the preset, as in the
+# reference).
+SCENARIO_CLI_FIELDS = ("species", "neighbourhood", "mobility", "mu",
+                       "sigma", "epsilon", "empty", "flux")
+
+
+def scenario_from_cli(args, parser) -> Scenario:
+    """The ``--scenario`` preset, overridden by the scenario-owned flags
+    that differ from ``parser``'s defaults (``SCENARIO_CLI_FIELDS``)."""
+    sc = make_scenario(args.scenario)
+    over = {}
+    for f in SCENARIO_CLI_FIELDS:
+        v = getattr(args, f, None)
+        if v is None or v == parser.get_default(f):
+            continue
+        over[f] = v
+    if "flux" in over:
+        over["boundary"] = "flux" if over.pop("flux") else "reflect"
+    return sc.replace(**over).validate() if over else sc
+
+
+def engine_config_from_args(args) -> EngineConfig:
+    kw = {}
+    for f in dataclasses.fields(EngineConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            kw[f.name] = tuple(v) if isinstance(v, list) else v
+    return EngineConfig(**kw)
+
+
+def run_config_from_args(args) -> RunConfig:
+    kw = {}
+    for f in dataclasses.fields(RunConfig):
+        v = getattr(args, f.name, None)
+        if v is not None:
+            kw[f.name] = v
+    if "observables" in kw:
+        # a comma-separated string on the command line; an absent flag
+        # (None) keeps the defer-to-scenario default
+        kw["observables"] = parse_observables(kw["observables"])
+    return RunConfig(**kw)
+
+
 # ------------------------------ presets ------------------------------------ #
 
 @register_scenario("park3", ScenarioCaps(
-    species=3, observables=("densities", "interface_length", "stasis_mcs")),
+    species=3, rates="deterministic",
+    observables=("densities", "interface_length", "stasis_mcs"),
+    description="paper baseline rock-paper-scissors: cyclic C(3,{1}) "
+                "dominance at low mobility (RMF spiral regime)",
+    paper="Tables 3.1/3.2; Reichenbach-Mobilia-Frey Fig 1.1"),
     dominance=lambda sc: dom_mod.RPS())
 def _build_park3() -> Scenario:
-    """Paper baseline rock-paper-scissors (Tables 3.1/3.2): cyclic C(3,{1})
-    dominance at low mobility, the Reichenbach-Mobilia-Frey spiral
-    regime."""
     return Scenario(name="park3", species=3, mobility=3e-5)
+
+
+@register_scenario("zhong_density", ScenarioCaps(
+    species=5, rates="deterministic",
+    observables=("extinction_mcs", "densities"),
+    description="Zhong et al. (2022) ablated RPSLS: the Rock-crushes-"
+                "Scissors edge removed; Paper goes extinct in 200-600 MCS",
+    paper="paper §3.1.2, Figs 3.2/3.3 (Zhong Fig 2)"),
+    dominance=lambda sc: dom_mod.zhong_ablated_rpsls())
+def _build_zhong_density() -> Scenario:
+    return Scenario(name="zhong_density", species=5, mobility=1e-4)
 
 
 def _nspecies_dom(sc: Scenario) -> np.ndarray:
     # C(S,{1,2}) from 5 species up (RPSLS and its generalizations),
-    # C(S,{1}) below
+    # C(S,{1}) below: the same rule as the CLI's default network
     offs = (1, 2) if sc.species >= 5 else (1,)
     return dom_mod.circulant(sc.species, offs)
 
 
 @register_scenario("nspecies", ScenarioCaps(
-    species=None, observables=("densities", "survival")),
+    species=None, rates="deterministic",
+    observables=("densities", "survival"),
+    description="parametric S-species cyclic game: C(S,{1,2}) for S >= 5 "
+                "(RPSLS family), C(S,{1}) below; name suffix sets S "
+                "('nspecies7')",
+    paper="paper §3.1.1 circulant C(S,K) family"),
     dominance=_nspecies_dom)
 def _build_nspecies(S: int = 5) -> Scenario:
-    """Parametric S-species cyclic game (paper §3.1.1 circulant family);
-    the name suffix sets S ('nspecies7')."""
     if S < 1:
         raise ValueError("nspecies family needs S >= 1")
     return Scenario(name=f"nspecies{S}", species=S, mobility=3e-5)
-
-
-@register_scenario("zhong_density", ScenarioCaps(
-    species=5, observables=("extinction_mcs", "densities")),
-    dominance=lambda sc: dom_mod.zhong_ablated_rpsls())
-def _build_zhong_density() -> Scenario:
-    """Zhong et al. (2022) ablated RPSLS (paper §3.1.2, Figs 3.2/3.3): the
-    Rock-crushes-Scissors edge removed; Paper goes extinct in 200-600
-    MCS."""
-    return Scenario(name="zhong_density", species=5, mobility=1e-4)
 
 
 def _park_alliance_dom(sc: Scenario) -> np.ndarray:
@@ -406,15 +477,18 @@ def _park_alliance_dom(sc: Scenario) -> np.ndarray:
 
 
 @register_scenario("probabilistic", ScenarioCaps(
-    species=8, observables=("survival", "survivors_hist", "extinction_mcs")),
+    species=8, rates="probabilistic",
+    observables=("survival", "survivors_hist", "extinction_mcs"),
+    description="Park, Chen & Szolnoki (2023) eight-species alliances: "
+                "probabilistic (alpha, beta, gamma) rates, no migration, "
+                "terminate after L^2 MCS",
+    paper="paper §4.3.2, Figs 4.9-4.13, Table 4.2"),
     dominance=_park_alliance_dom)
 def _build_probabilistic(alpha: float = 0.15, beta: float = 0.75,
                          gamma: float = 1.0,
                          mobility: float = 0.0) -> Scenario:
-    """Park, Chen & Szolnoki (2023) eight-species alliances (paper §4.3.2,
-    Figs 4.9-4.13, Table 4.2): probabilistic (alpha, beta, gamma) rates and
-    no migration; mobility > 0 is the companion paper's extension (epsilon
-    then reverts to 2 * M * N)."""
+    # Park et al. have no migration; mobility > 0 is the companion
+    # paper's extension (epsilon then reverts to 2 * M * N)
     return Scenario(name="probabilistic", species=8, mobility=mobility,
                     epsilon=None if mobility > 0 else 0.0,
                     extras=_freeze_extras(
@@ -429,12 +503,15 @@ def _asym_dom(sc: Scenario) -> np.ndarray:
 
 
 @register_scenario("asym_rps", ScenarioCaps(
-    species=3, observables=("densities", "survival")),
+    species=3, rates="probabilistic",
+    observables=("densities", "survival"),
+    description="asymmetric-dominance RPS: the three cyclic edges carry "
+                "unequal kill rates (r12, r23, r31) — breaks the "
+                "symmetric-coexistence degeneracy",
+    paper="paper §3.1.1 rate generalization (Park-style asymmetry)"),
     dominance=_asym_dom)
 def _build_asym_rps(r12: float = 1.0, r23: float = 0.7,
                     r31: float = 0.4) -> Scenario:
-    """Asymmetric-dominance RPS (paper §3.1.1's rate generalization): the
-    three cyclic edges carry unequal kill rates."""
     return Scenario(name="asym_rps", species=3, mobility=3e-5,
                     extras=_freeze_extras(
                         {"r12": r12, "r23": r23, "r31": r31}))

@@ -228,6 +228,29 @@ def simulate(params, dom: Optional[np.ndarray] = None,
     if dom is None:
         dom = dom_mod.circulant(p.species)
     eng = engines.build(p, dom, device)
+    if p.observables:
+        chunk_fn, pipe = build_obs_chunk_fn(p, eng)
+    else:
+        chunk_fn, pipe = build_chunk_fn(p, eng), None
+    return run_built(p, eng, chunk_fn, pipe, grid0=grid0, key=key,
+                     hooks=hooks, stop_on_stasis=stop_on_stasis)
+
+
+def run_built(p: EscgParams, eng: engines.BuiltEngine, chunk_fn,
+              pipe: Optional[obs_mod.ObsPipeline] = None, grid0=None,
+              key: Optional[torch.Tensor] = None,
+              hooks: Sequence[Callable[[int, torch.Tensor, np.ndarray],
+                                       None]] = (),
+              stop_on_stasis: bool = True,
+              on_chunk: Optional[Callable[[int, int], None]] = None
+              ) -> SimResult:
+    """:func:`simulate`'s loop over an engine that is already built:
+    ``chunk_fn`` is ``build_chunk_fn(p, eng)``, or with ``pipe`` the
+    chunk of ``build_obs_chunk_fn``. ``p`` may differ from the params the
+    engine and chunk were built with in what they do not bind (seed, MCS
+    budget), so a server reuses one build across requests.
+    ``on_chunk(mcs_done, stasis_mcs)`` is called after each chunk's
+    stasis check, without the lattice."""
     dev = eng.device
     if key is None:
         key = threefry.PRNGKey(p.seed)
@@ -238,10 +261,9 @@ def simulate(params, dom: Optional[np.ndarray] = None,
                                   p.empty, dtype=cell_dt, device=dev)
     grid = eng.place(torch.as_tensor(grid0).to(device=dev, dtype=cell_dt)
                      .contiguous())
-    obs_on = bool(p.observables)
+    obs_on = pipe is not None
     rows_all = []
     if obs_on:
-        chunk_fn, pipe = build_obs_chunk_fn(p, eng)
         max_chunk = max(1, min(p.chunk_mcs, p.mcs))
         cap = obs_mod.ring_capacity(p, max_chunk)
         if cap < max_chunk:
@@ -251,8 +273,6 @@ def simulate(params, dom: Optional[np.ndarray] = None,
                 "reads every row, so the ring must hold a full chunk "
                 "(0 = auto-size)")
         ring, pos = obs_mod.ring_init(cap, (pipe.width,), dev)
-    else:
-        chunk_fn = build_chunk_fn(p, eng)
     hist = [eng.counts(grid, p.species).cpu().numpy()[None]]
     mcs_done, stasis_mcs = 0, -1
     kept_total, att_total = 0, 0
@@ -281,6 +301,8 @@ def simulate(params, dom: Optional[np.ndarray] = None,
             whole = eng.gather(grid)
             for hook in hooks:
                 hook(mcs_done, whole, cnts_h)
+        if on_chunk is not None:
+            on_chunk(mcs_done, stasis_mcs)
         if stop_on_stasis and stasis_mcs >= 0:
             break
 
