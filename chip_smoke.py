@@ -80,6 +80,23 @@ each with the launch counts set to 0 just before it and read just after:
   ``cuda:0``;
   ``python -m repro_torch.launch.serve`` on the committed smoke trace with
   ``--check``; and one request through the HTTP adapter on 127.0.0.1.
+* The LM appendix (DESIGN.md §9; no TPU kernel lies on its path, so it
+  adds no kernel): ``[lm/serve]`` granite-3-8b at full width with 8 of
+  its 40 layers (bfloat16), a prefill of 2 x 4095 tokens and one
+  ``decode_step`` against a 4096-token prefill (timed in bfloat16; held
+  within 2e-2 with float32 compute on the same weights);
+  ``[lm/train]`` six AdamW steps of 2 x 4096 ``SyntheticTokens`` under
+  the reference's ``cosine_schedule`` (ms per step, tokens/s, the
+  model-FLOPs share, peak memory; the loss finite and step 1's batch's
+  loss lower after them); ``[lm/restart]`` the
+  ``FaultTolerantLoop`` at the reduced size with a failure at step 5,
+  equal bit for bit to a failure-free run, and ``python -m
+  repro_torch.launch.train`` as a process, then with ``--resume``;
+  ``[ckpt]`` park3's 3200 x 3200 lattice after 10 MCS of
+  ``sharded``/``fused`` on (2, 2) of ``cuda:0`` saved as a
+  ``ShardedLattice`` with its key, restored onto (4, 1) and whole, K4s
+  on the restored mesh equal to the saved counts, bfloat16 and int32
+  leaves bit for bit.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -196,6 +213,20 @@ POD_EDGE_BLOCK, POD_EDGE_RUNS = (240, 224), (1, 4, 8)
 CLI_MCS, CLI_CHUNK, CLI_RESUME, CLI_TRIALS, CLI_TRIAL_MCS = 20, 10, 10, 8, 10
 SRV_REQS, SRV_CHUNK = ((1, 4, 10), (2, 4, 20), (3, 8, 20)), 10
 SRV_POD_N, SRV_POD_MCS = 8, 5
+# the LM appendix (DESIGN.md §9): granite-3-8b at full width with 8 of its
+# 40 layers, bfloat16; prefill 2 x 4095 tokens then one decode step against
+# a 4096-token prefill (four 1024-token kv chunks), decode timed over
+# LM_DECODES calls; AdamW for LM_STEPS steps of 2 x 4096 tokens (train_4k's
+# sequence, its batch of 256 cut to 2) under the reference's
+# cosine_schedule defaults; the restart check at the reduced
+# size (the launcher's default 8 x 256 batch), a failure at RESTART_FAIL;
+# the H100 SXM's dense bfloat16 peak for the model-FLOPs share
+LM_ARCH, LM_LAYERS, LM_SEQ, LM_BATCH, LM_STEPS = "granite-3-8b", 8, 4096, 2, 6
+LM_DECODES, H100_BF16_FLOPS = 8, 989.4e12
+RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_RESUME = 8, 2, 5, 12
+# a sharded_fused lattice after CKPT_MCS MCS at SIDE, saved on SH_GRID and
+# restored onto CKPT_GRID and whole
+CKPT_MCS, CKPT_GRID = 10, (4, 1)
 
 
 def check(cond, what):
@@ -330,6 +361,279 @@ def counted_rolls(torch, rolls, key):
         yield
     finally:
         torch.roll = real
+
+
+def lm_phases(torch, np, dev, card, park3, mesh4):
+    """The LM appendix's paths on the card (phases 28-31): ``[lm/serve]``,
+    ``[lm/train]``, ``[lm/restart]`` and ``[ckpt]``. Every figure is
+    printed on its own line beside the card."""
+    from repro_torch.configs import ARCHS as LM_ARCHS
+    from repro_torch.configs import SHAPES, ShapeConfig
+    from repro_torch.core import engines, lattice, sharded, threefry
+    from repro_torch.core.scenarios import EngineConfig, RunConfig, compose
+    from repro_torch.core.simulation import build_chunk_fn, simulate
+    from repro_torch.data import batch_for_model
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.parallel.sharding import LatticeMesh
+    from repro_torch.runtime import train_lib
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.runtime.fault import FaultTolerantLoop
+
+    # ---- 28. [lm/serve] prefill and decode at full width ----
+    cfg = LM_ARCHS[LM_ARCH].replace(n_layers=LM_LAYERS)
+    check((cfg.d_model, cfg.n_heads, cfg.n_kv, cfg.head_dim, cfg.d_ff,
+           cfg.vocab_padded, cfg.param_dtype, cfg.compute_dtype)
+          == (4096, 32, 8, 128, 12800, 49408, "bfloat16", "bfloat16"),
+          f"[lm] {LM_ARCH} is not at its full width: {cfg}")
+    model = build_model(cfg)
+    n_params = model.n_params()
+    t_phase = time.perf_counter()
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    tokens = batch_for_model(
+        model, ShapeConfig("prefill_4k", LM_SEQ, LM_BATCH, "prefill"), 0, 0,
+        device=dev)["tokens"]
+    prefill = train_lib.make_prefill_step(model, LM_SEQ)
+    decode = train_lib.make_decode_step(model)
+    prompt, nxt = {"tokens": tokens[:, :-1]}, {"tokens": tokens[:, -1]}
+    first_ms, _ = once_ms(torch, lambda: prefill(params, prompt))
+    prefill_ms, (last, cache) = once_ms(torch, lambda: prefill(params,
+                                                               prompt))
+    logits, cache2 = decode(params, cache, nxt)
+    decode_ms = event_ms(torch, lambda: decode(params, cache, nxt),
+                         LM_DECODES)
+    full_ms, (want, _) = once_ms(torch, lambda: prefill(
+        params, {"tokens": tokens}))
+    got, want = logits.float(), want.float()
+    err_bf16 = float((got - want).abs().max())
+    check(got.shape == (LM_BATCH, cfg.vocab_padded)
+          and bool(torch.isfinite(got[:, :cfg.vocab]).all())
+          and bool(torch.isfinite(last.float()[:, :cfg.vocab]).all())
+          and int(cache["len"]) == LM_SEQ - 1
+          and int(cache2["len"]) == LM_SEQ
+          and tuple(cache2["k"].shape) == (LM_LAYERS, LM_BATCH, LM_SEQ,
+                                           cfg.n_kv, cfg.head_dim),
+          "[lm/serve] the logits or the cache have the wrong shape, length "
+          "or values")
+    # the cache check at the reference test's tolerance: the same bfloat16
+    # weights with float32 compute. In bfloat16, cuBLAS rounds a product
+    # of M = 2 rows and one of M = 8192 rows to neighbouring bfloat16s now
+    # and then, and 8 layers of 4096 widen that to a few hundredths.
+    m32 = build_model(cfg.replace(compute_dtype="float32"))
+    pre32 = train_lib.make_prefill_step(m32, LM_SEQ)
+    _, c32 = pre32(params, prompt)
+    got32, _ = train_lib.make_decode_step(m32)(params, c32, nxt)
+    want32, _ = pre32(params, {"tokens": tokens})
+    err = float((got32 - want32).abs().max())
+    check(bool(((got32 - want32).abs() <= 2e-2 + 2e-2 * want32.abs())
+               .all()),
+          f"[lm/serve] decode after a {LM_SEQ - 1}-token prefill differs "
+          f"from a {LM_SEQ}-token prefill beyond 2e-2 (float32 compute): "
+          f"max |err| {err}")
+    print(f"[lm/serve] {LM_ARCH} at full width, {LM_LAYERS} of 40 layers "
+          f"({n_params:,} params, bfloat16), init {init_ms / 1e3:.2f} s; "
+          f"prefill {LM_BATCH} x {LM_SEQ - 1} tokens {prefill_ms:.1f} ms "
+          f"(first call {first_ms:.1f} ms), decode {decode_ms:.2f} ms per "
+          f"token (batch {LM_BATCH}, cache {LM_SEQ}, mean of {LM_DECODES}); "
+          f"decode logits against a {LM_SEQ}-token prefill ({full_ms:.1f} "
+          f"ms): max |err| {err_bf16:.4g} in bfloat16, {err:.4g} with "
+          f"float32 compute (held to 2e-2); {card}")
+    del params, cache, cache2, logits, last, got, want, c32, got32, want32
+
+    # ---- 29. [lm/train] AdamW steps at full width ----
+    check(LM_SEQ == SHAPES["train_4k"].seq_len, "[lm/train] LM_SEQ is not "
+          "train_4k's sequence")
+    shape = ShapeConfig("train_4k", LM_SEQ, LM_BATCH, "train")
+    torch.cuda.reset_peak_memory_stats()
+    state = train_lib.init_state(model, threefry.PRNGKey(0), device=dev)
+    # the reference's schedule as it stands (peak 3e-4, 100 warmup steps):
+    # AdamW at 3e-4 from the first step moves each weight by 3e-4 and every
+    # layer's output by O(1) at this width, and the loss climbs
+    step_fn = train_lib.make_train_step(model, schedule=cosine_schedule())
+    first = batch_for_model(model, shape, 0, 0, device=dev)
+    step_s, losses, lrs = [], [], []
+    for s in range(LM_STEPS):
+        batch = batch_for_model(model, shape, s, 0, device=dev)
+        ms, (state, met) = once_ms(torch, lambda: step_fn(state, batch))
+        step_s.append(ms / 1e3)
+        losses.append(float(met["loss"]))
+        lrs.append(float(met["lr"]))
+    with torch.no_grad():
+        after = float(model.loss(state["params"], first)[0])
+    peak = torch.cuda.max_memory_allocated()
+    steady = sum(step_s[1:]) / (LM_STEPS - 1)
+    n_tok = LM_BATCH * shape.seq_len
+    mfu = 6 * n_params * n_tok / (steady * H100_BF16_FLOPS)
+    check(all(np.isfinite(losses)) and np.isfinite(after)
+          and int(state["step"]) == LM_STEPS,
+          f"[lm/train] losses {losses}, step {int(state['step'])}")
+    check(after < losses[0], f"[lm/train] the loss of step 1's batch did not "
+          f"fall over {LM_STEPS} steps: {losses[0]} -> {after}")
+    train_s = time.perf_counter() - t_phase
+    busy_ms, gemm_share, top = lm_step_profile(torch, lambda: step_fn(
+        state, batch))
+    print(f"[lm/train] {LM_ARCH} {LM_LAYERS} layers, AdamW, batch "
+          f"{LM_BATCH} x {shape.seq_len} from SyntheticTokens, {LM_STEPS} "
+          f"steps (lr {lrs[0]:.2g} to {lrs[-1]:.2g}, the reference's "
+          f"cosine_schedule defaults): losses "
+          f"{[round(x, 4) for x in losses]}; step 1's batch "
+          f"{losses[0]:.4f} -> {after:.4f} after step {LM_STEPS}; "
+          f"{steady * 1e3:.1f} ms per step after the first (first "
+          f"{step_s[0] * 1e3:.1f}), {n_tok / steady:,.0f} tokens/s, "
+          f"model-FLOPs share {mfu:.4f} of {H100_BF16_FLOPS / 1e12} TFLOP/s"
+          f" (6 N tokens, N = {n_params:,}), max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB; phases 28-29 {train_s:.1f} s; {card}")
+    print(f"[lm/train] one more step under torch.profiler: device busy "
+          f"{busy_ms}, cuBLAS products {gemm_share} of it; the largest "
+          f"kernels by device ms: {top}")
+    del state, met, batch, first
+
+    # ---- 30. [lm/restart] the fault-tolerant loop at the reduced size ----
+    rmodel = build_model(LM_ARCHS[LM_ARCH].reduced())
+    rshape = ShapeConfig("cli", 256, 8, "train")
+    rstep = train_lib.make_train_step(rmodel)
+    work = tempfile.mkdtemp(prefix="chip_smoke_lm_")
+
+    def rrun(name, fail_at):
+        loop = FaultTolerantLoop(
+            rstep, CheckpointManager(os.path.join(work, name), device=dev),
+            ckpt_every=RESTART_EVERY)
+        fails = set() if fail_at is None else {fail_at}
+        st = train_lib.init_state(rmodel, threefry.PRNGKey(0), device=dev)
+        out, end = loop.run(
+            st, lambda s: batch_for_model(rmodel, rshape, s, 0, device=dev),
+            RESTART_STEPS,
+            inject_failure=lambda s: s in fails and not fails.discard(s))
+        return out, end, loop.restarts
+    t0 = time.perf_counter()
+    clean, end0, r0 = rrun("clean", None)
+    again, end1, r1 = rrun("failed", RESTART_FAIL)
+    loop_s = time.perf_counter() - t0
+    leaves = list(zip(tree_leaves(clean), tree_leaves(again)))
+    check((end0, r0, end1, r1) == (RESTART_STEPS, 0, RESTART_STEPS, 1)
+          and int(again["step"]) == RESTART_STEPS,
+          f"[lm/restart] ends {end0}, {end1}, restarts {r0}, {r1}")
+    check(all(a.dtype == b.dtype and torch.equal(a, b) for a, b in leaves),
+          "[lm/restart] the restarted run's state differs from the "
+          "failure-free run's")
+    env = dict(os.environ)
+    env["PYTHONPATH"] = (os.path.join(HERE, "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+    cli = [sys.executable, "-m", "repro_torch.launch.train", "--arch",
+           LM_ARCH, "--reduced", "--ckpt_dir", os.path.join(work, "cli"),
+           "--ckpt_every", str(RESTART_EVERY), "--log_every", "4"]
+    walls = []
+    for args, want_text in (
+            (["--steps", str(RESTART_STEPS)],
+             f"steps 0->{RESTART_STEPS}"),
+            (["--steps", str(RESTART_RESUME), "--resume"],
+             f"steps {RESTART_STEPS}->{RESTART_RESUME}")):
+        t1 = time.perf_counter()
+        out = subprocess.run(cli + args, capture_output=True, text=True,
+                             timeout=600, env=env, cwd=HERE)
+        walls.append(time.perf_counter() - t1)
+        check(out.returncode == 0 and want_text in out.stdout
+              and "device=cuda" in out.stdout,
+              f"[lm/restart] launch.train {args} exited {out.returncode}:\n"
+              f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+    check(CheckpointManager(os.path.join(work, "cli"), device=dev)
+          .latest_step() == RESTART_RESUME,
+          "[lm/restart] the resumed launcher left no checkpoint at its end")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[lm/restart] {LM_ARCH} reduced ({rmodel.n_params():,} params), "
+          f"{RESTART_STEPS} steps of 8 x 256, a checkpoint every "
+          f"{RESTART_EVERY}, a failure at step {RESTART_FAIL}: ends at step "
+          f"{end1} after 1 restart, every one of {len(leaves)} state leaves "
+          f"equal to the failure-free run's bit for bit ({loop_s:.2f} s for "
+          f"both runs); python -m repro_torch.launch.train {walls[0]:.1f} s "
+          f"to step {RESTART_STEPS}, then --resume to {RESTART_RESUME} "
+          f"{walls[1]:.1f} s; {card}")
+
+    # ---- 31. [ckpt] a decomposed lattice saved and restored elsewhere ----
+    p_ck = compose(park3, EngineConfig(engine="sharded", tile=TILE,
+                                       shard_grid=SH_GRID,
+                                       local_kernel="fused"),
+                   RunConfig(length=SIDE, height=SIDE, mcs=CKPT_MCS,
+                             chunk_mcs=CKPT_MCS, observables=()))
+    eng = engines.build(p_ck, park3.dominance(), mesh4)
+    key, k0 = threefry.split(threefry.PRNGKey(p_ck.seed))
+    lat = eng.place(lattice.init_grid(k0, SIDE, SIDE, p_ck.species,
+                                      p_ck.empty, device=dev,
+                                      dtype=getattr(torch, p_ck.cell_dtype)))
+    lat, key, cnts, _, _ = build_chunk_fn(p_ck, eng)(lat, key, CKPT_MCS)
+    check(isinstance(lat, sharded.ShardedLattice)
+          and lat.mesh.shape == SH_GRID,
+          f"[ckpt] sharded/fused did not keep a {SH_GRID} ShardedLattice")
+    saved = lat.gather()
+    twin = simulate(p_ck, park3.dominance(), device=mesh4,
+                    stop_on_stasis=False)
+    check(np.array_equal(saved.cpu().numpy(), twin.grid),
+          "[ckpt] the lattice differs from simulate's after the same MCS")
+    words = torch.randint(-2 ** 15, 2 ** 15, (4096, 128), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(0))
+    half = words.to(torch.int16).view(torch.bfloat16).to(dev)
+    ints = words.to(dev)
+    work = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    cm = CheckpointManager(work, device=dev)
+    save_ms, _ = once_ms(torch, lambda: cm.save(
+        CKPT_MCS, {"lattice": lat, "key": key, "half": half, "ints": ints}))
+    mesh41 = LatticeMesh(tuple((torch.device("cuda", 0),)
+                               for _ in range(CKPT_GRID[0])))
+    restore_ms, (step, got) = once_ms(
+        torch, lambda: cm.restore(shardings={"lattice": mesh41}))
+    whole_ms, (_, whole) = once_ms(torch, lambda: cm.restore())
+    nbytes = saved.numel() * saved.element_size()
+    counts = sharded.sharded_counts(got["lattice"], p_ck.species)
+    check(step == CKPT_MCS and got["lattice"].mesh.shape == CKPT_GRID
+          and torch.equal(got["lattice"].gather(), saved)
+          and whole["lattice"].device.type == "cuda"
+          and torch.equal(whole["lattice"], saved)
+          and torch.equal(got["key"], key.to(dev))
+          and torch.equal(counts.cpu(), cnts[-1].cpu().to(counts.dtype)),
+          "[ckpt] the restored lattice, its key or its K4s counts differ "
+          "from the saved run's")
+    check(got["half"].dtype == torch.bfloat16 and got["half"].is_cuda
+          and torch.equal(got["half"].view(torch.int16).cpu(),
+                          words.to(torch.int16))
+          and torch.equal(got["ints"], ints),
+          "[ckpt] the bfloat16 or int32 leaf did not round-trip")
+    shutil.rmtree(work, ignore_errors=True)
+    print(f"[ckpt] park3 {SIDE}x{SIDE} after {CKPT_MCS} MCS of "
+          f"sharded/fused on {SH_GRID} of cuda:0 ({nbytes / 1e6:.2f} MB, "
+          f"equal to simulate's): saved as a ShardedLattice leaf with its "
+          f"key, a bfloat16 and an int32 leaf in {save_ms / 1e3:.3f} s; "
+          f"restored onto {CKPT_GRID} of cuda:0 in {restore_ms / 1e3:.3f} s "
+          f"and whole in {whole_ms / 1e3:.3f} s, both equal to the saved "
+          f"lattice, K4s on {CKPT_GRID} equal to the saved counts "
+          f"{counts.tolist()}; the bfloat16 and int32 leaves bit for bit; "
+          f"{card}")
+
+
+def lm_step_profile(torch, fn):
+    """(device busy ms, the products' share of it, the six largest kernels
+    with their device ms) of one call of ``fn`` under ``torch.profiler``;
+    "not measured" where the trace holds no device time."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        fn()
+        torch.cuda.synchronize()
+    dev_us = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA:
+            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + float(
+                getattr(evt, "self_device_time_total", 0.0)
+                or getattr(evt, "self_cuda_time_total", 0.0))
+    total = sum(dev_us.values())
+    if total <= 0:
+        return "not measured", "not measured", []
+    gemm = sum(v for k, v in dev_us.items()
+               if re.search(r"gemm|nvjet|sm90_|cutlass|xmma", k, re.I))
+    top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
+    return (f"{total / 1e3:.1f} ms", f"{gemm / total:.3f}",
+            [(k[:70], round(v / 1e3, 1)) for k, v in top])
 
 
 def main():
@@ -2385,7 +2689,10 @@ def main():
     print("[serve] one request through the HTTP adapter on 127.0.0.1: a "
           "cache hit, equal to its direct run_trials")
 
-    # ---- 28. the kernel table ----
+    # ---- 28-31. the LM appendix and the checkpoint ----
+    lm_phases(torch, np, dev, card, park3, mesh4)
+
+    # ---- 32. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,

@@ -9,7 +9,11 @@ The reference's state crosses as plain data, so this module needs neither
 * a key as its ``uint32`` key data (``numpy.asarray(jax.random.key_data(k))``
   or a raw ``PRNGKey``);
 * a lattice or a padded dominance matrix as a numpy array;
-* a ``TrialResult`` as its JSON form.
+* a ``TrialResult`` as its JSON form;
+* an LM's params or train state (``params_from_jax``,
+  ``state_from_jax``) as a tree of numpy arrays, ``np.asarray`` of each
+  leaf: bfloat16 as an ``ml_dtypes`` array or the ``'<V2'`` payload the
+  reference's checkpoints hold; ``state_to_numpy`` the other way.
 """
 from __future__ import annotations
 
@@ -21,8 +25,10 @@ import torch
 from .core.device import DeviceLike, resolve_device
 from .core.params import EscgParams
 from .core.scenarios import EngineConfig, RunConfig, Scenario
+from .core.sharded import ShardedLattice
 from .core.threefry import MASK
 from .core.trials import TrialResult
+from .runtime.checkpoint import tensor_from_numpy
 
 _CONFIGS = {cls.__name__: cls
             for cls in (EscgParams, Scenario, EngineConfig, RunConfig)}
@@ -83,3 +89,37 @@ def dom_from_jax(dom, device: Optional[DeviceLike] = None) -> torch.Tensor:
     if arr.ndim != 2 or arr.shape[0] != arr.shape[1]:
         raise ValueError(f"dominance must be square, got {arr.shape}")
     return torch.from_numpy(arr.copy()).to(resolve_device(device))
+
+
+def _tree_from_jax(tree, device):
+    if isinstance(tree, dict):
+        return {k: _tree_from_jax(v, device) for k, v in tree.items()}
+    return tensor_from_numpy(tree).to(device)
+
+
+def params_from_jax(params, device: Optional[DeviceLike] = None):
+    """An LM's params as the port's tensors on ``device`` (default: the
+    card): the same tree of dicts, each numpy leaf copied in its dtype
+    (bfloat16 from an ``ml_dtypes`` array or a 2-byte void payload)."""
+    return _tree_from_jax(params, resolve_device(device))
+
+
+def state_from_jax(state, device: Optional[DeviceLike] = None):
+    """An LM train state (``params``, ``opt``, ``step`` [, ``ef``]) as the
+    port's tensors on ``device`` (default: the card), leaf by leaf as
+    ``params_from_jax``; the step stays a 0-d int32 tensor."""
+    return _tree_from_jax(state, resolve_device(device))
+
+
+def state_to_numpy(tree):
+    """A tree of the port's tensors as numpy arrays on the host, bfloat16
+    widened to float32 (exact) since numpy has no bfloat16; a decomposed
+    lattice (``ShardedLattice``) gathered whole."""
+    if isinstance(tree, dict):
+        return {k: state_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, ShardedLattice):
+        tree = tree.gather()
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        t = t.float()
+    return t.numpy().copy()

@@ -13,8 +13,9 @@ same lattice and the same per-MCS schedule:
 * ``split(key, n)`` hashes the counters 0..2n-1, ``fold_in(key, d)``
   hashes the seed key (0, d), ``random_bits`` hashes 0..size-1;
 * ``uniform`` keeps the top 23 bits as a float32 mantissa in [1, 2) and
-  subtracts 1; ``randint`` draws two words per value and folds them with
-  the span/multiplier scheme of ``jax.random.randint``.
+  subtracts 1; ``normal`` maps uniforms on (-1, 1) through XLA's
+  ``erf_inv`` polynomial; ``randint`` draws two words per value and folds
+  them with the span/multiplier scheme of ``jax.random.randint``.
 
 uint32 arithmetic runs on int64 tensors masked back to 32 bits. The
 per-MCS key chain keeps its keys on the host and hashes them with Python
@@ -150,6 +151,80 @@ def uniform(key: torch.Tensor, shape: Shape, minval: float = 0.0,
     """float32 uniforms in [minval, maxval), as ``jax.random.uniform``, on
     ``device`` (default: the key's device)."""
     return _to_unit_float(random_bits(key, shape, device), minval, maxval)
+
+
+# ``jax.random.normal``'s open interval for its uniforms: the float32 after
+# -1 towards 0, up to 1
+_NORMAL_LO = -1.0 + 2.0 ** -24
+_SQRT2 = math.sqrt(2.0)
+# counter pairs hashed at once by ``normal``: int64 temporaries of a slice,
+# never of a whole stacked leaf
+_NORMAL_SLICE = 1 << 23
+# XLA's float32 erf_inv (Giles' approximation): the polynomial's
+# coefficients in w = -log1p(-x^2) below 5, then in sqrt(w) above
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function as XLA computes it (the same
+    polynomial in the same order); ``log1p`` and ``sqrt`` are PyTorch's,
+    so a value may differ from XLA's by a few ulps."""
+    w = -torch.log1p(x * -x)
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, torch.sqrt(w) - 3.0)
+
+    def coef(i):
+        return torch.where(lt, torch.tensor(_ERFINV_LT5[i], dtype=x.dtype,
+                                            device=x.device),
+                           torch.tensor(_ERFINV_GE5[i], dtype=x.dtype,
+                                        device=x.device))
+    p = coef(0)
+    for i in range(1, len(_ERFINV_LT5)):
+        p = coef(i) + p * w
+    return torch.where(x.abs() == 1, x * math.inf, p * x)
+
+
+def normal(key: torch.Tensor, shape: Shape,
+           device: Optional[DeviceLike] = None, std: Optional[float] = None,
+           dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """Standard normals as ``jax.random.normal(key, shape, float32)``:
+    ``sqrt(2) * erf_inv(u)`` of uniforms ``u`` in ``[nextafter(-1, 0),
+    1)``, times ``std`` when given (in float32), cast to ``dtype``, on
+    ``device`` (default: the key's device).
+
+    The uniform bits are threefry's exactly; ``erf_inv`` may put a value a
+    few float32 ulps from the reference's. The counters are hashed in
+    slices of pairs: counter i pairs with i + ceil(n/2) (the odd count's
+    last pair with a zero word), so each slice fills two ranges of the
+    output."""
+    shape = _shape(shape)
+    n = math.prod(shape)
+    _check_size(n)
+    device = key.device if device is None else device
+    k0, k1 = _words(key)
+    out = torch.empty(n, dtype=dtype, device=device)
+    half = (n + 1) // 2
+    sqrt2 = torch.tensor(_SQRT2, dtype=torch.float32, device=device)
+    if std is not None:
+        std = torch.tensor(std, dtype=torch.float32, device=device)
+    for lo in range(0, half, _NORMAL_SLICE):
+        hi = min(lo + _NORMAL_SLICE, half)
+        x0 = torch.arange(lo, hi, dtype=torch.int64, device=device)
+        x1 = x0 + half
+        if n % 2 and hi == half:
+            x1[-1] = 0
+        for dst, bits in zip((lo, lo + half), _hash(k0, k1, x0, x1)):
+            vals = erf_inv(_to_unit_float(bits, _NORMAL_LO, 1.0)) * sqrt2
+            if std is not None:
+                vals = vals * std
+            m = min(hi - lo, n - dst)
+            out[dst:dst + m] = vals[:m]
+    return out.reshape(shape)
 
 
 def _as_int32_range(v, shape, device) -> torch.Tensor:

@@ -15,7 +15,9 @@ single-device twins; the trial forms of K1-K4 to their plain versions,
 and ``run_trials`` on the card to the CPU; the table forms of K1 and K3
 and K4s per trial (every block of every trial of a card) to their plain
 versions, and ``sharded_pod`` on a (2, 2, 2) mesh of one card's entries
-to the single-device trial engines.
+to the single-device trial engines; one LM train step on the card to the
+CPU, and a checkpoint round trip of card tensors (bfloat16, int32, a
+``ShardedLattice`` restored onto other meshes of the card).
 """
 import hashlib
 import json
@@ -878,3 +880,78 @@ def test_sharded_pod_k_mcs_on_one_card_equals_pallas_fused(cuda,
     want = run("pallas_fused", cuda)
     np.testing.assert_array_equal(got.densities, want.densities)
     np.testing.assert_array_equal(got.extinction_mcs, want.extinction_mcs)
+
+
+# --------------------- the LM appendix on the card ----------------------- #
+
+@pytest.mark.parametrize("arch,optimizer", [("granite-3-8b", "adamw"),
+                                            ("pixtral-12b", "adafactor")])
+def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch, optimizer):
+    """One train step of a reduced model (float32) on the card against the
+    same step on the CPU: the loss within 1e-5 relative, every optimizer
+    leaf within 1e-4, the params within 1e-4, except where AdamW's first
+    update g / (|g| + 1e-8) is ill-conditioned (|g| under 1e-6, read off
+    the first moment (1 - b1) g): there within its range, 2 lr."""
+    from repro_torch.configs import ARCHS, ShapeConfig
+    from repro_torch.convert import state_to_numpy
+    from repro_torch.data import batch_for_model
+    from repro_torch.models import build_model
+    from repro_torch.models.spec import tree_leaves
+    from repro_torch.runtime import train_lib
+
+    model = build_model(ARCHS[arch].reduced().replace(optimizer=optimizer))
+    out = {}
+    for dev in ("cpu", cuda):
+        st = train_lib.init_state(model, threefry.PRNGKey(0), device=dev)
+        batch = batch_for_model(model, ShapeConfig("t", 64, 2, "train"), 0,
+                                device=dev)
+        out[str(dev)] = train_lib.make_train_step(model)(st, batch)
+    (cs, cm), (gs, gm) = out["cpu"], out[str(cuda)]
+    assert int(gs["step"]) == 1 and gs["step"].device.type == "cuda"
+    np.testing.assert_allclose(float(gm["loss"]), float(cm["loss"]),
+                               rtol=1e-5)
+    for a, b in zip(tree_leaves(state_to_numpy(cs["opt"])),
+                    tree_leaves(state_to_numpy(gs["opt"]))):
+        np.testing.assert_allclose(b, a, rtol=1e-4,
+                                   atol=1e-4 * np.abs(a).max() + 1e-12)
+    moments = tree_leaves(state_to_numpy(cs["opt"]))[0::2]
+    for i, (a, b) in enumerate(zip(tree_leaves(state_to_numpy(cs["params"])),
+                                   tree_leaves(state_to_numpy(gs["params"])))):
+        ill = (np.abs(moments[i]) / 0.1 < 1e-6 if optimizer == "adamw"
+               else np.zeros(a.shape, bool))
+        tol = np.where(ill, 6e-4, 1e-4 + 1e-4 * np.abs(a))
+        assert (np.abs(b - a) <= tol).all(), (arch, i)
+
+
+def test_checkpoint_round_trip_of_card_tensors(cuda, tmp_path):
+    """bfloat16, int32 and a ``ShardedLattice`` on a (2, 2) mesh of
+    ``cuda:0`` saved from the card and restored onto it: onto the card
+    whole, and onto (4, 1) and (2, 2) meshes of ``cuda:0``, bit for
+    bit."""
+    from repro_torch.parallel.sharding import LatticeMesh
+    from repro_torch.runtime.checkpoint import CheckpointManager
+
+    words = torch.randint(-2 ** 15, 2 ** 15, (33, 70), dtype=torch.int32,
+                          generator=torch.Generator().manual_seed(0))
+    half = words.to(torch.int16).view(torch.bfloat16).to(cuda)
+    ints = words.to(cuda)
+    grid = lattice.init_grid(threefry.PRNGKey(2), 256, 512, 3, 0.1,
+                             dtype=torch.int8, device=cuda)
+    mesh22 = LatticeMesh(((torch.device(cuda.type, 0),) * 2,) * 2)
+    mesh41 = LatticeMesh(((torch.device(cuda.type, 0),),) * 4)
+    cm = CheckpointManager(str(tmp_path), device=cuda)
+    cm.save(1, {"h": half, "i": ints, "g": sharded.place(grid, mesh22)},
+            blocking=False)
+    half.fill_(0)                       # the save holds its own host copy
+    cm.wait()
+    _, whole = cm.restore()
+    assert whole["h"].device.type == "cuda" and whole["h"].dtype == \
+        torch.bfloat16
+    assert torch.equal(whole["h"].view(torch.int16).cpu(),
+                       words.to(torch.int16))
+    assert torch.equal(whole["i"], ints) and torch.equal(whole["g"], grid)
+    for mesh in (mesh41, mesh22):
+        _, got = cm.restore(shardings={"g": mesh})
+        assert got["g"].mesh.shape == mesh.shape
+        assert all(b.device.type == "cuda" for b in got["g"].flat)
+        assert torch.equal(got["g"].gather(), grid)

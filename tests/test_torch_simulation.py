@@ -265,6 +265,15 @@ def test_port_imports_no_jax():
             "import repro_torch.core.sharded\n"
             "import repro_torch.core.trials, repro_torch.core.park\n"
             "import repro_torch.parallel.sharding\n"
+            "import repro_torch.launch.escg_run, repro_torch.launch.serve\n"
+            "import repro_torch.serve.server\n"
+            "import repro_torch.configs, repro_torch.models.registry\n"
+            "import repro_torch.models.transformer\n"
+            "import repro_torch.optim.compression, repro_torch.data\n"
+            "import repro_torch.runtime.checkpoint\n"
+            "import repro_torch.runtime.fault\n"
+            "import repro_torch.runtime.train_lib\n"
+            "import repro_torch.launch.train\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
             "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
             "print(bad)\n")
