@@ -81,10 +81,10 @@ each with the launch counts set to 0 just before it and read just after:
   ``python -m repro_torch.launch.serve`` on the committed smoke trace with
   ``--check``; and one request through the HTTP adapter on 127.0.0.1.
 * The LM appendix (DESIGN.md §9; no TPU kernel lies on its path, so it
-  adds no kernel): ``[lm/serve]`` granite-3-8b at full width with 8 of
-  its 40 layers (bfloat16), a prefill of 2 x 4095 tokens and one
-  ``decode_step`` against a 4096-token prefill (timed in bfloat16; held
-  within 2e-2 with float32 compute on the same weights);
+  adds no kernel), the dense family: ``[lm/serve]`` granite-3-8b at full
+  width with 8 of its 40 layers (bfloat16), a prefill of 2 x 4095 tokens
+  and one ``decode_step`` against a 4096-token prefill (timed in
+  bfloat16; held within 2e-2 with float32 compute on the same weights);
   ``[lm/train]`` six AdamW steps of 2 x 4096 ``SyntheticTokens`` under
   the reference's ``cosine_schedule`` (ms per step, tokens/s, the
   model-FLOPs share, peak memory; the loss finite and step 1's batch's
@@ -97,6 +97,23 @@ each with the launch counts set to 0 just before it and read just after:
   ``ShardedLattice`` with its key, restored onto (4, 1) and whole, K4s
   on the restored mesh equal to the saved counts, bfloat16 and int32
   leaves bit for bit.
+* The LM appendix's other families at full width, each model freed
+  before the next: ``[lm/moe]`` grok-1-314b with 2 of its 64 layers
+  (prefill 2 x 4095, decode; layer 0's share of dropped choices and what
+  sets it; decode against a prefill with float32 compute and ``moe_cf`` 8
+  at 1 x 1024, held to 1e-3, as every family's float32 check is) and
+  kimi-k2-1t-a32b with 1 of 61 (prefill 1 x 4096, decode; ``moe_layer``
+  on 64 tokens held to a float32 loop over the kept choices through the
+  experts' own slices); ``[lm/ssm]`` falcon-mamba-7b serving at its 64
+  layers (prefill 2 x 4096, decode; float32 decode against a prefill at
+  8 layers) and training at 8 (six AdamW steps of 2 x 4096, every grad
+  norm finite, step 1's batch's loss lower after them; ms per step,
+  tokens/s, the model-FLOPs share, peak memory, one step's device
+  launches under the profiler); ``[lm/hybrid]`` zamba2-7b at 12 of 81
+  layers (two shared-attention applications) at its own ``ssm_chunk`` of
+  128, the same train checks, prefill, decode and the float32 check; and
+  ``[lm/encdec]`` whisper-small whole, the same at 2 x 4096 decoder
+  tokens over 1500 frames.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -223,6 +240,22 @@ SRV_POD_N, SRV_POD_MCS = 8, 5
 # the H100 SXM's dense bfloat16 peak for the model-FLOPs share
 LM_ARCH, LM_LAYERS, LM_SEQ, LM_BATCH, LM_STEPS = "granite-3-8b", 8, 4096, 2, 6
 LM_DECODES, H100_BF16_FLOPS = 8, 989.4e12
+# the LM appendix's other families at full width (phases 32-35): grok-1
+# with GROK_LAYERS of its 64 layers and kimi-k2 with KIMI_LAYERS of 61,
+# serving only (their weights, grads and optimizer state at full width do
+# not fit one card at any depth); the float32 cache checks at
+# LM_CHECK_SEQ tokens (grok-1 1 x LM_CHECK_SEQ with moe_cf 8, no drops; the
+# others LM_BATCH x LM_CHECK_SEQ): the (LM_CHECK_SEQ - 1)-token prefill is
+# odd, so the reference's chunk rule halves the SSM chunk to 1 there, and
+# Mamba-2 then holds every token's (heads, state, head_dim) state (3.75 GB
+# at zamba2-7b's widths, 15 GB at 4095 tokens); kimi-k2's moe_layer held on
+# MOE_CHECK_TOKENS tokens to a loop over the kept choices; falcon-mamba-7b
+# serving at all MAMBA_SERVE_LAYERS and training at MAMBA_TRAIN_LAYERS;
+# zamba2-7b at ZAMBA_LAYERS of 81 (two shared-attention applications);
+# whisper-small whole. Prefills and steps of LM_BATCH x LM_SEQ tokens
+# (kimi-k2 1 x LM_SEQ), LM_STEPS AdamW steps each.
+GROK_LAYERS, KIMI_LAYERS, LM_CHECK_SEQ, MOE_CHECK_TOKENS = 2, 1, 1024, 64
+MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS, ZAMBA_LAYERS = 64, 8, 12
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_RESUME = 8, 2, 5, 12
 # a sharded_fused lattice after CKPT_MCS MCS at SIDE, saved on SH_GRID and
 # restored onto CKPT_GRID and whole
@@ -472,8 +505,8 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
     check(after < losses[0], f"[lm/train] the loss of step 1's batch did not "
           f"fall over {LM_STEPS} steps: {losses[0]} -> {after}")
     train_s = time.perf_counter() - t_phase
-    busy_ms, gemm_share, top = lm_step_profile(torch, lambda: step_fn(
-        state, batch))
+    busy_ms, gemm_share, top, step_launches = lm_step_profile(
+        torch, lambda: step_fn(state, batch))
     print(f"[lm/train] {LM_ARCH} {LM_LAYERS} layers, AdamW, batch "
           f"{LM_BATCH} x {shape.seq_len} from SyntheticTokens, {LM_STEPS} "
           f"steps (lr {lrs[0]:.2g} to {lrs[-1]:.2g}, the reference's "
@@ -485,9 +518,9 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
           f"model-FLOPs share {mfu:.4f} of {H100_BF16_FLOPS / 1e12} TFLOP/s"
           f" (6 N tokens, N = {n_params:,}), max_memory_allocated "
           f"{peak / 2 ** 30:.2f} GiB; phases 28-29 {train_s:.1f} s; {card}")
-    print(f"[lm/train] one more step under torch.profiler: device busy "
-          f"{busy_ms}, cuBLAS products {gemm_share} of it; the largest "
-          f"kernels by device ms: {top}")
+    print(f"[lm/train] one more step under torch.profiler: {step_launches} "
+          f"device launches, device busy {busy_ms}, cuBLAS products "
+          f"{gemm_share} of it; the largest kernels by device ms: {top}")
     del state, met, batch, first
 
     # ---- 30. [lm/restart] the fault-tolerant loop at the reduced size ----
@@ -611,29 +644,371 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
           f"{card}")
 
 
+def lm_family_phases(torch, np, dev, card, park3, mesh4):
+    """The LM appendix's other families on the card (phases 32-35):
+    ``[lm/moe]`` (grok-1 and kimi-k2 serving), ``[lm/ssm]`` (falcon-mamba
+    serving and training), ``[lm/hybrid]`` (zamba2) and ``[lm/encdec]``
+    (whisper-small), each at full width, its model freed before the next.
+    Every figure is printed on its own line beside the card."""
+    from repro_torch.configs import ARCHS as LM_ARCHS
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import threefry
+    from repro_torch.data import batch_for_model
+    from repro_torch.models import build_model, common, moe, transformer
+    from repro_torch.models.spec import torch_dtype, tree_map
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.runtime import train_lib
+
+    def full_width(name, n_layers, **want):
+        cfg = LM_ARCHS[name].replace(n_layers=n_layers)
+        got = {k: getattr(cfg, k) for k in want}
+        check(got == want and cfg.param_dtype == "bfloat16"
+              and cfg.compute_dtype == "bfloat16",
+              f"[lm] {name} is not at its full width: {got}")
+        return cfg
+
+    def free():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+    def inputs(model, seq, n):
+        return batch_for_model(model, ShapeConfig("prefill", seq, n,
+                                                  "prefill"), 0, 0,
+                               device=dev)
+
+    def serve(model, params, n, seq, label):
+        """Prefill n x seq tokens under torch.profiler (printed; the first
+        call), then timed, then decode the next token against that cache
+        (mean of LM_DECODES)."""
+        cfg = model.cfg
+        full = inputs(model, seq + 1, n)
+        prompt = dict(full, tokens=full["tokens"][:, :seq])
+        nxt = {"tokens": full["tokens"][:, seq]}
+        prefill = train_lib.make_prefill_step(model, seq + 1)
+        decode = train_lib.make_decode_step(model)
+        busy_ms, gemm_share, top, launches = lm_step_profile(
+            torch, lambda: prefill(params, prompt))
+        print(f"[{label}] {cfg.name}: one prefill of {n} x {seq} under "
+              f"torch.profiler: {launches} device launches, device busy "
+              f"{busy_ms}, cuBLAS products {gemm_share} of it; the largest "
+              f"kernels by device ms: {top}")
+        prefill_ms, (last, cache) = once_ms(torch, lambda: prefill(params,
+                                                                   prompt))
+        logits, cache2 = decode(params, cache, nxt)
+        decode_ms = event_ms(torch, lambda: decode(params, cache, nxt),
+                             LM_DECODES)
+        specs = model.cache_specs(n, seq + 1)
+        check(tuple(logits.shape) == (n, cfg.vocab_padded)
+              and bool(torch.isfinite(logits.float()[:, :cfg.vocab]).all())
+              and bool(torch.isfinite(last.float()[:, :cfg.vocab]).all())
+              and int(cache["len"]) == seq and int(cache2["len"]) == seq + 1
+              and all(tuple(cache2[k].shape) == specs[k].shape
+                      and cache2[k].dtype == torch_dtype(specs[k].dtype)
+                      for k in specs),
+              f"[lm] {cfg.name}: the logits or the cache have the wrong "
+              f"shape, length or values")
+        return prefill_ms, decode_ms
+
+    def decode_vs_prefill(cfg32, params, n, seq):
+        """Max |err| of a decode after an (seq - 1)-token prefill against a
+        seq-token prefill, float32 compute on the bfloat16 weights, held
+        to 1e-3 (on the H100 they read 3.5e-06 to 2.5e-05; PERF.md §6)."""
+        free()
+        m32 = build_model(cfg32)
+        full = inputs(m32, seq, n)
+        pre = train_lib.make_prefill_step(m32, seq)
+        _, c = pre(params, dict(full, tokens=full["tokens"][:, :-1]))
+        got, _ = train_lib.make_decode_step(m32)(
+            params, c, {"tokens": full["tokens"][:, -1]})
+        want, _ = pre(params, full)
+        err = float((got - want).abs().max())
+        check(bool(((got - want).abs() <= 1e-3 + 1e-3 * want.abs()).all()),
+              f"[lm] {cfg32.name}: decode after a {seq - 1}-token prefill "
+              f"differs from a {seq}-token prefill beyond 1e-3 (float32 "
+              f"compute): max |err| {err}")
+        return err
+
+    def train(model, label, batch=LM_BATCH, seq=LM_SEQ):
+        """LM_STEPS AdamW steps of batch x seq under the reference's
+        cosine_schedule, as phase 29: every loss and grad norm finite (a
+        finite global norm is every grad finite), the loss of step 1's
+        batch lower after them; one more step under torch.profiler."""
+        shape = ShapeConfig("train_4k", seq, batch, "train")
+        torch.cuda.reset_peak_memory_stats()
+        state = train_lib.init_state(model, threefry.PRNGKey(0), device=dev)
+        step_fn = train_lib.make_train_step(model,
+                                            schedule=cosine_schedule())
+        first = batch_for_model(model, shape, 0, 0, device=dev)
+        step_s, losses, norms = [], [], []
+        for s in range(LM_STEPS):
+            b = batch_for_model(model, shape, s, 0, device=dev)
+            ms, (state, met) = once_ms(torch, lambda: step_fn(state, b))
+            step_s.append(ms / 1e3)
+            losses.append(float(met["loss"]))
+            norms.append(float(met["grad_norm"]))
+        with torch.no_grad():
+            after = float(model.loss(state["params"], first)[0])
+        peak = torch.cuda.max_memory_allocated()
+        check(all(np.isfinite(losses)) and all(np.isfinite(norms))
+              and np.isfinite(after) and int(state["step"]) == LM_STEPS,
+              f"[{label}] losses {losses}, grad norms {norms}")
+        check(after < losses[0], f"[{label}] the loss of step 1's batch "
+              f"did not fall over {LM_STEPS} steps: {losses[0]} -> {after}")
+        steady = sum(step_s[1:]) / (LM_STEPS - 1)
+        n_params = model.n_params()
+        n_tok = batch * seq
+        mfu = 6 * n_params * n_tok / (steady * H100_BF16_FLOPS)
+        busy_ms, gemm_share, top, launches = lm_step_profile(
+            torch, lambda: step_fn(state, b))
+        print(f"[{label}] {model.cfg.name} {model.cfg.n_layers} layers "
+              f"({n_params:,} params), AdamW, batch {batch} x {seq} from "
+              f"SyntheticTokens, {LM_STEPS} steps: losses "
+              f"{[round(x, 4) for x in losses]}, grad norms "
+              f"{[round(x, 4) for x in norms]} (all finite); step 1's batch "
+              f"{losses[0]:.4f} -> {after:.4f} after step {LM_STEPS}; "
+              f"{steady * 1e3:.1f} ms per step after the first (first "
+              f"{step_s[0] * 1e3:.1f}), {n_tok / steady:,.0f} tokens/s, "
+              f"model-FLOPs share {mfu:.4f} of {H100_BF16_FLOPS / 1e12} "
+              f"TFLOP/s (6 N tokens), max_memory_allocated "
+              f"{peak / 2 ** 30:.2f} GiB; {card}")
+        print(f"[{label}] one more step under torch.profiler: {launches} "
+              f"device launches, device busy {busy_ms}, cuBLAS products "
+              f"{gemm_share} of it; the largest kernels by device ms: {top}")
+
+    def moe_routing(cfg, params, tokens):
+        """Layer 0's routing in a prefill of ``tokens``
+        (``transformer.moe_routing``), its MoE params and input, and what
+        sets its drop share: the rms of the embedding and of the attention
+        block's output, the mean cosine of two router inputs of one group
+        (the embedding's alone beside it), and the share dropped when the
+        router sees ``ln2`` of the embedding alone."""
+        lp = tree_map(lambda v: v[0], params["layers"])
+        with torch.no_grad():
+            x, r = transformer.moe_routing(cfg, params, tokens)
+            e = transformer.embed_lookup(params["embed"]["tokens"], tokens,
+                                         x.dtype)
+            h = common.rmsnorm(x, lp["ln2"])
+            he = common.rmsnorm(e, lp["ln2"])
+            r_e = moe.route_layer(lp["moe"], he, cfg)
+
+            def rms(a):
+                return float(a.float().pow(2).mean().sqrt())
+
+            def cosine(a):
+                b, g, t = r.topi.shape[:3]
+                u = torch.nn.functional.normalize(
+                    a.float().reshape(b, g, t, -1), dim=-1)
+                return float(((u @ u.transpose(-1, -2)).sum() - b * g * t)
+                             / (b * g * t * (t - 1)))
+
+            why = (f"embedding rms {rms(e):.4g}, attention output rms "
+                   f"{rms(x - e):.4g}; mean cosine of two router inputs "
+                   f"in a group {cosine(h):.4f} (the embedding's alone "
+                   f"{cosine(he):.4f}); routed on the embedding alone it "
+                   f"would drop {1.0 - float(r_e.keep.float().mean()):.4f}")
+        return lp["moe"], h, r, why
+
+    # ---- 32. [lm/moe] grok-1 and kimi-k2 serving at full width ----
+    t_phase = time.perf_counter()
+    cfg = full_width("grok-1-314b", GROK_LAYERS, d_model=6144, n_heads=48,
+                     n_kv=8, head_dim=128, moe_experts=8, moe_topk=2,
+                     moe_dff=32768, moe_groups=16, vocab_padded=131072)
+    model = build_model(cfg)
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    prefill_ms, decode_ms = serve(model, params, LM_BATCH,
+                                  LM_SEQ - 1, "lm/moe")
+    _, _, r, why = moe_routing(cfg, params, inputs(
+        model, LM_SEQ, LM_BATCH)["tokens"][:, :LM_SEQ - 1])
+    grok_drop = 1.0 - float(r.keep.float().mean())
+    err = decode_vs_prefill(cfg.replace(compute_dtype="float32",
+                                        moe_cf=8.0), params, 1,
+                            LM_CHECK_SEQ)
+    print(f"[lm/moe] grok-1-314b at full width, {GROK_LAYERS} of 64 layers "
+          f"({model.n_params():,} params, {model.n_active_params():,} "
+          f"active; bfloat16), init {init_ms / 1e3:.2f} s; prefill "
+          f"{LM_BATCH} x {LM_SEQ - 1} tokens {prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.2f} ms per token "
+          f"(batch {LM_BATCH}, cache {LM_SEQ}, mean of {LM_DECODES}); layer "
+          f"0 drops {grok_drop:.4f} of its choices (capacity {r.cap} per "
+          f"expert and group of {r.topi.shape[2]}; {why}); float32 "
+          f"compute with "
+          f"moe_cf 8 at 1 x {LM_CHECK_SEQ}: decode against a prefill max "
+          f"|err| {err:.4g} (held to 1e-3); {card}")
+    del params, model, r
+    free()
+
+    cfg = full_width("kimi-k2-1t-a32b", KIMI_LAYERS, d_model=7168,
+                     n_heads=64, n_kv=8, head_dim=112, moe_experts=384,
+                     moe_topk=8, moe_dff=2048, moe_groups=16,
+                     vocab_padded=163840)
+    model = build_model(cfg)
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    prefill_ms, decode_ms = serve(model, params, 1, LM_SEQ,
+                                  "lm/moe")
+    toks = inputs(model, LM_SEQ + 1, 1)["tokens"][:, :LM_SEQ]
+    pm, h, r, why = moe_routing(cfg, params, toks)
+    kimi_drop = 1.0 - float(r.keep.float().mean())
+    # the dispatch and combine at full width, not through the einsums:
+    # moe_layer on MOE_CHECK_TOKENS tokens against sum(gate * FFN_e(x)) over
+    # each token's kept choices, from the experts' own slices in float32
+    hs = h[:, :MOE_CHECK_TOKENS]
+    with torch.no_grad():
+        y, _ = moe.moe_layer(pm, hs, cfg)
+        rs = moe.route_layer(pm, hs, cfg)
+        xs = hs.reshape(-1, cfg.d_model).float()
+        e_of = rs.topi.reshape(MOE_CHECK_TOKENS, -1)
+        kept = rs.keep.reshape(MOE_CHECK_TOKENS, -1)
+        gate = rs.topv.reshape(MOE_CHECK_TOKENS, -1)
+        want = torch.zeros_like(xs)
+        n_kept = 0
+        for e in sorted(set(e_of[kept].tolist())):
+            tok, j = torch.nonzero((e_of == e) & kept, as_tuple=True)
+            xe = xs[tok]
+            he = xe @ pm["wi"][e].float()
+            he = he * torch.sigmoid(he) * (xe @ pm["wg"][e].float())
+            want.index_add_(0, tok, gate[tok, j, None]
+                            * (he @ pm["wo"][e].float()))
+            n_kept += int(tok.numel())
+    got = y.reshape(-1, cfg.d_model).float()
+    moe_err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    check(n_kept == int(rs.keep.sum()) and n_kept > 0
+          and moe_err <= 2e-2 * scale,
+          f"[lm/moe] kimi-k2 moe_layer differs from the loop over its kept "
+          f"choices: max |err| {moe_err} against max |y| {scale}")
+    print(f"[lm/moe] kimi-k2-1t-a32b at full width, {KIMI_LAYERS} of 61 "
+          f"layers ({model.n_params():,} params, {model.n_active_params():,}"
+          f" active; bfloat16), init {init_ms / 1e3:.2f} s; prefill 1 x "
+          f"{LM_SEQ} tokens {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms "
+          f"per token (cache {LM_SEQ + 1}, "
+          f"mean of {LM_DECODES}); layer 0 drops {kimi_drop:.4f} of its "
+          f"choices at 1 x {LM_SEQ} (capacity {r.cap} per expert and group "
+          f"of {r.topi.shape[2]}; {why}); moe_layer on {MOE_CHECK_TOKENS} "
+          f"tokens "
+          f"(bfloat16) against the float32 loop over its {n_kept} kept "
+          f"choices of {rs.keep.numel()} ({1 - n_kept / rs.keep.numel():.4f}"
+          f" dropped, capacity {rs.cap}): max |err| {moe_err:.4g}, max |y| "
+          f"{scale:.4g} (held to 2e-2 of it); phase 32 "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del params, model, h, hs, y, want, xs, pm, r, rs
+    free()
+
+    # ---- 33. [lm/ssm] falcon-mamba-7b serving and training ----
+    t_phase = time.perf_counter()
+    cfg = full_width("falcon-mamba-7b", MAMBA_SERVE_LAYERS, d_model=4096,
+                     d_inner=8192, ssm_state=16, ssm_conv=4, ssm_chunk=32,
+                     mamba_version=1, vocab_padded=65024)
+    model = build_model(cfg)
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    prefill_ms, decode_ms = serve(model, params, LM_BATCH,
+                                  LM_SEQ, "lm/ssm")
+    cut = dict(params, layers=tree_map(lambda v: v[:MAMBA_TRAIN_LAYERS],
+                                       params["layers"]))
+    err = decode_vs_prefill(cfg.replace(n_layers=MAMBA_TRAIN_LAYERS,
+                                        compute_dtype="float32"), cut,
+                            LM_BATCH, LM_CHECK_SEQ)
+    print(f"[lm/ssm] falcon-mamba-7b at full width, all "
+          f"{MAMBA_SERVE_LAYERS} layers ({model.n_params():,} params, "
+          f"bfloat16), init {init_ms / 1e3:.2f} s; prefill {LM_BATCH} x "
+          f"{LM_SEQ} tokens {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms "
+          f"per token (mean of {LM_DECODES}); at {MAMBA_TRAIN_LAYERS} layers,"
+          f" float32 compute, decode against a {LM_CHECK_SEQ}-token prefill "
+          f"max |err| {err:.4g} (held to 1e-3); {card}")
+    del params, cut, model
+    free()
+    train(build_model(cfg.replace(n_layers=MAMBA_TRAIN_LAYERS)), "lm/ssm")
+    print(f"[lm/ssm] phase 33 {time.perf_counter() - t_phase:.1f} s; {card}")
+    free()
+
+    # ---- 34. [lm/hybrid] zamba2-7b at its own ssm_chunk of 128 ----
+    t_phase = time.perf_counter()
+    cfg = full_width("zamba2-7b", ZAMBA_LAYERS, d_model=3584, d_inner=7168,
+                     ssm_heads=112, ssm_state=64, ssm_chunk=128,
+                     attn_every=6, n_heads=32, n_kv=32, head_dim=112,
+                     d_ff=14336, vocab_padded=32000)
+    model = build_model(cfg)
+    train(model, "lm/hybrid")
+    free()
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    prefill_ms, decode_ms = serve(model, params, LM_BATCH,
+                                  LM_SEQ, "lm/hybrid")
+    err = decode_vs_prefill(cfg.replace(compute_dtype="float32"), params,
+                            LM_BATCH, LM_CHECK_SEQ)
+    print(f"[lm/hybrid] zamba2-7b at full width, {ZAMBA_LAYERS} of 81 "
+          f"layers, {ZAMBA_LAYERS // cfg.attn_every} shared-attention "
+          f"applications ({model.n_params():,} params, bfloat16), init "
+          f"{init_ms / 1e3:.2f} s; prefill {LM_BATCH} x {LM_SEQ} tokens "
+          f"{prefill_ms:.1f} ms, decode "
+          f"{decode_ms:.2f} ms per token (mean of {LM_DECODES}); float32 "
+          f"compute: decode against a {LM_CHECK_SEQ}-token prefill max "
+          f"|err| {err:.4g} (held to 1e-3); phase 34 "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del params, model
+    free()
+
+    # ---- 35. [lm/encdec] whisper-small whole ----
+    t_phase = time.perf_counter()
+    cfg = full_width("whisper-small", 12, d_model=768, n_heads=12, n_kv=12,
+                     head_dim=64, d_ff=3072, enc_layers=12, enc_len=1500,
+                     vocab_padded=51968)
+    model = build_model(cfg)
+    train(model, "lm/encdec")
+    free()
+    init_ms, params = once_ms(torch, lambda: model.init(threefry.PRNGKey(0),
+                                                       dev))
+    prefill_ms, decode_ms = serve(model, params, LM_BATCH,
+                                  LM_SEQ, "lm/encdec")
+    err = decode_vs_prefill(cfg.replace(compute_dtype="float32"), params,
+                            LM_BATCH, LM_CHECK_SEQ)
+    print(f"[lm/encdec] whisper-small whole (12 + 12 layers, "
+          f"{cfg.enc_len} frames; {model.n_params():,} params, bfloat16), "
+          f"init {init_ms / 1e3:.2f} s; prefill {LM_BATCH} x {LM_SEQ} "
+          f"decoder tokens {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms "
+          f"per token (mean of {LM_DECODES});"
+          f" float32 compute: decode against a {LM_CHECK_SEQ}-token prefill "
+          f"max |err| {err:.4g} (held to 1e-3); phase 35 "
+          f"{time.perf_counter() - t_phase:.1f} s; {card}")
+    del params, model
+    free()
+
+
 def lm_step_profile(torch, fn):
     """(device busy ms, the products' share of it, the six largest kernels
-    with their device ms) of one call of ``fn`` under ``torch.profiler``;
-    "not measured" where the trace holds no device time."""
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with their device ms, the device launches: kernels, copies and fills)
+    of one call of ``fn`` under ``torch.profiler`` (device activity only),
+    read from its exported trace: a step of ~200,000 launches takes
+    minutes through ``key_averages``; "not measured" where the trace holds
+    no device time."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    dev_us = {}
-    for evt in prof.key_averages():
-        if evt.device_type == torch.autograd.DeviceType.CUDA:
-            dev_us[evt.key] = dev_us.get(evt.key, 0.0) + float(
-                getattr(evt, "self_device_time_total", 0.0)
-                or getattr(evt, "self_cuda_time_total", 0.0))
+    fd, path = tempfile.mkstemp(suffix=".json")
+    os.close(fd)
+    try:
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        os.remove(path)
+    dev_us, launches = {}, 0
+    for evt in events:
+        if evt.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
+            dev_us[evt["name"]] = (dev_us.get(evt["name"], 0.0)
+                                   + float(evt.get("dur", 0.0)))
+            launches += 1
     total = sum(dev_us.values())
     if total <= 0:
-        return "not measured", "not measured", []
+        return "not measured", "not measured", [], "not measured"
     gemm = sum(v for k, v in dev_us.items()
                if re.search(r"gemm|nvjet|sm90_|cutlass|xmma", k, re.I))
     top = sorted(dev_us.items(), key=lambda kv: -kv[1])[:6]
     return (f"{total / 1e3:.1f} ms", f"{gemm / total:.3f}",
-            [(k[:70], round(v / 1e3, 1)) for k, v in top])
+            [(k[:70], round(v / 1e3, 1)) for k, v in top], launches)
 
 
 def main():
@@ -2692,7 +3067,10 @@ def main():
     # ---- 28-31. the LM appendix and the checkpoint ----
     lm_phases(torch, np, dev, card, park3, mesh4)
 
-    # ---- 32. the kernel table ----
+    # ---- 32-35. the LM appendix's moe, ssm, hybrid and encdec families ----
+    lm_family_phases(torch, np, dev, card, park3, mesh4)
+
+    # ---- 36. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,

@@ -160,6 +160,8 @@ _SQRT2 = math.sqrt(2.0)
 # counter pairs hashed at once by ``normal``: int64 temporaries of a slice,
 # never of a whole stacked leaf
 _NORMAL_SLICE = 1 << 23
+# the most counters one key hashes in the reference's ``_random_bits``
+_BLOCK = MASK
 # XLA's float32 erf_inv (Giles' approximation): the polynomial's
 # coefficients in w = -log1p(-x^2) below 5, then in sqrt(w) above
 _ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
@@ -201,17 +203,35 @@ def normal(key: torch.Tensor, shape: Shape,
     few float32 ulps from the reference's. The counters are hashed in
     slices of pairs: counter i pairs with i + ceil(n/2) (the odd count's
     last pair with a zero word), so each slice fills two ranges of the
-    output."""
+    output. From ``_BLOCK`` (2^32 - 1) words on, the reference's blocked
+    scheme: ``split(key, nblocks + 1)``, a whole block of ``_BLOCK``
+    counters from each of the first keys, the rest from the last."""
     shape = _shape(shape)
     n = math.prod(shape)
-    _check_size(n)
     device = key.device if device is None else device
-    k0, k1 = _words(key)
     out = torch.empty(n, dtype=dtype, device=device)
-    half = (n + 1) // 2
     sqrt2 = torch.tensor(_SQRT2, dtype=torch.float32, device=device)
     if std is not None:
         std = torch.tensor(std, dtype=torch.float32, device=device)
+    nblocks, rem = divmod(n, _BLOCK)
+    if not nblocks:
+        _fill_normal(out, key, sqrt2, std)
+    else:
+        keys = split(key, nblocks + 1)
+        for b in range(nblocks):
+            _fill_normal(out[b * _BLOCK:(b + 1) * _BLOCK], keys[b], sqrt2,
+                         std)
+        _fill_normal(out[nblocks * _BLOCK:], keys[nblocks], sqrt2, std)
+    return out.reshape(shape)
+
+
+def _fill_normal(out: torch.Tensor, key: torch.Tensor, sqrt2: torch.Tensor,
+                 std: Optional[torch.Tensor]) -> None:
+    """``out`` (1-D) := the normals of counters 0..len(out) from ``key``."""
+    n = out.numel()
+    device = out.device
+    k0, k1 = _words(key)
+    half = (n + 1) // 2
     for lo in range(0, half, _NORMAL_SLICE):
         hi = min(lo + _NORMAL_SLICE, half)
         x0 = torch.arange(lo, hi, dtype=torch.int64, device=device)
@@ -224,7 +244,6 @@ def normal(key: torch.Tensor, shape: Shape,
                 vals = vals * std
             m = min(hi - lo, n - dst)
             out[dst:dst + m] = vals[:m]
-    return out.reshape(shape)
 
 
 def _as_int32_range(v, shape, device) -> torch.Tensor:

@@ -6,7 +6,9 @@ scaffold: synthetic pipeline, AdamW/Adafactor, checkpoint/restart fault
 tolerance, optional int8-EF gradient compression. The ESCG entry points
 are ``escg_run`` (repro_torch.launch.escg_run) and ``escg_serve``
 (repro_torch.launch.serve); nothing in the ESCG reproduction imports this
-module. The port runs the ``dense`` and ``vlm`` families.
+module. ``--arch`` takes every config in ``configs/`` (every model
+family: dense, vlm, moe, ssm, hybrid, encdec); a config's optimizer is
+its own (kimi-k2: Adafactor).
 
 It runs on the card; ``--device cpu`` runs the plain PyTorch path.
 Without a card and without ``--device cpu`` it exits non-zero.

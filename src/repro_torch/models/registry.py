@@ -6,13 +6,23 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ModelConfig, ShapeConfig
 from ..core import threefry
 from ..core.device import DeviceLike, resolve_device
+from . import encdec, transformer
 from . import spec as spec_mod
-from . import transformer
+
+FAMILIES = ("dense", "vlm", "moe", "ssm", "hybrid", "encdec")
+
+
+def _module(cfg: ModelConfig):
+    """The module of a config's family: ``encdec`` or ``transformer``."""
+    if cfg.family not in FAMILIES:
+        raise ValueError(f"unknown family {cfg.family!r}; have {FAMILIES}")
+    return encdec if cfg.family == "encdec" else transformer
 
 
 @dataclass(frozen=True)
@@ -31,22 +41,32 @@ class Model:
         return spec_mod.count_params(self.param_specs)
 
     def n_active_params(self) -> int:
-        """Active parameters per token (every parameter: the ported
-        families have no experts)."""
-        return self.n_params()
+        """Active parameters per token (MoE: top-k of the expert pool)."""
+        cfg = self.cfg
+        total = self.n_params()
+        if cfg.family != "moe" or not cfg.moe_experts:
+            return total
+        expert = sum(int(np.prod(s.shape)) for p, s in
+                     spec_mod.tree_paths(self.param_specs).items()
+                     if "/moe/w" in p)
+        return total - expert + expert * cfg.moe_topk // cfg.moe_experts
 
     # ---- compute ----
+    @property
+    def _impl(self):
+        return _module(self.cfg)
+
     def loss(self, params, batch):
-        return transformer.loss_fn(self.cfg, params, batch)
+        return self._impl.loss_fn(self.cfg, params, batch)
 
     def prefill(self, params, batch, max_len: Optional[int] = None):
-        return transformer.prefill(self.cfg, params, batch, max_len)
+        return self._impl.prefill(self.cfg, params, batch, max_len)
 
     def decode_step(self, params, cache, tokens):
-        return transformer.decode_step(self.cfg, params, cache, tokens)
+        return self._impl.decode_step(self.cfg, params, cache, tokens)
 
     def cache_specs(self, batch: int, max_len: int):
-        return transformer.cache_specs(self.cfg, batch, max_len)
+        return self._impl.cache_specs(self.cfg, batch, max_len)
 
     def abstract_cache(self, batch: int, max_len: int):
         return spec_mod.abstract(self.cache_specs(batch, max_len))
@@ -75,11 +95,14 @@ class Model:
             out = {"tokens": meta((b, s), torch.int32)}
             if shape.kind == "train":
                 out["labels"] = meta((b, s), torch.int32)
+            if cfg.family == "encdec":
+                out["frames"] = meta((b, cfg.enc_len, cfg.d_model),
+                                     torch.float32)
             if cfg.family == "vlm":
                 out["img_embeds"] = meta((b, cfg.vlm_prefix, cfg.d_model),
                                          torch.float32)
             return out
-        # decode: one token with a KV cache of seq_len
+        # decode: one token with a KV/state cache of seq_len
         return {"tokens": meta((b,), torch.int32)}
 
     def concrete_inputs(self, shape: ShapeConfig, key: torch.Tensor,
@@ -102,8 +125,6 @@ class Model:
 
 
 def build_model(cfg: ModelConfig) -> Model:
-    """The model of a dense or vlm config; the other families raise
-    ``NotImplementedError`` naming their ROADMAP items."""
-    transformer.check_family(cfg)
-    return Model(cfg=cfg, param_specs=transformer.build_specs(cfg))
+    """The model of a config of any family in ``FAMILIES``."""
+    return Model(cfg=cfg, param_specs=_module(cfg).build_specs(cfg))
 

@@ -1,13 +1,13 @@
-"""Decoder-only LM of the dense and vlm families (port of
-``repro.models.transformer``), with the stacked-layer loop + remat, KV
-caches, prefill and decode steps.
+"""Decoder-only LM of the dense, moe, ssm, hybrid and vlm families (port
+of ``repro.models.transformer``), with the stacked-layer loop + remat,
+KV/SSM caches, prefill and decode steps.
 
-One code path serves minitron-4b, granite-3-8b, qwen1.5-32b, yi-9b and
-pixtral-12b (text backbone + stub image-embedding prefix). The reference's
-``moe``, ``ssm`` and ``hybrid`` families raise ``NotImplementedError``
-naming their ROADMAP items. The reference's ``constrain`` calls (activation
-sharding constraints around each layer) are no-ops on one card and are
-dropped; they stood at the entry and exit of ``_run_layers``' body.
+One code path serves minitron-4b, granite-3-8b, qwen1.5-32b, yi-9b,
+pixtral-12b (text backbone + stub image-embedding prefix), kimi-k2,
+grok-1, falcon-mamba-7b and zamba2-7b; whisper-small's encoder-decoder is
+``encdec.py``. The reference's ``constrain`` calls (activation sharding
+constraints around each layer) are no-ops on one card and are dropped;
+they stood at the entry and exit of ``_run_layers``' body.
 """
 from __future__ import annotations
 
@@ -16,42 +16,32 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import common
+from . import common, moe as moe_mod, ssm as ssm_mod
 from .spec import ParamSpec, stack_layers, torch_dtype
 
 AUX_LOSS_WEIGHT = 0.01
-
-# the reference's families that wait for a later slice, by ROADMAP item
-NOT_PORTED = {
-    "moe": "models/moe.py (ROADMAP Queue 1 item 6: kimi-k2, grok-1)",
-    "ssm": "models/ssm.py (ROADMAP Queue 1 item 7: falcon-mamba, zamba2)",
-    "hybrid": "models/ssm.py and the hybrid path (ROADMAP Queue 1 item 7: "
-              "zamba2)",
-    "encdec": "models/encdec.py (ROADMAP Queue 1 item 8: whisper)",
-}
-
-
-def check_family(cfg) -> None:
-    """Raise for a family whose modules are not ported yet."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family!r} needs "
-            f"{NOT_PORTED[cfg.family]}, not ported yet; the port runs "
-            "'dense' and 'vlm'")
-    if cfg.family not in ("dense", "vlm"):
-        raise ValueError(f"unknown family {cfg.family!r}")
 
 
 # ------------------------------ param specs ------------------------------ #
 
 def _layer_specs(cfg) -> dict:
-    check_family(cfg)
-    return {
+    if cfg.family == "ssm":
+        return {"norm": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+                "mamba": (ssm_mod.mamba1_specs(cfg) if cfg.mamba_version == 1
+                          else ssm_mod.mamba2_specs(cfg))}
+    if cfg.family == "hybrid":
+        return {"norm": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+                "mamba": ssm_mod.mamba2_specs(cfg)}
+    block = {
         "ln1": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
         "attn": common.attn_specs(cfg),
         "ln2": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
-        "mlp": common.mlp_specs(cfg),
     }
+    if cfg.family == "moe":
+        block["moe"] = moe_mod.moe_specs(cfg)
+    else:
+        block["mlp"] = common.mlp_specs(cfg)
+    return block
 
 
 def build_specs(cfg) -> dict:
@@ -66,25 +56,60 @@ def build_specs(cfg) -> dict:
         specs["unembed"] = ParamSpec((cfg.d_model, cfg.vocab_padded),
                                      ("embed", "vocab"),
                                      dtype=cfg.param_dtype)
+    if cfg.family == "hybrid":
+        # zamba2: ONE shared attention block reused every `attn_every` layers
+        specs["shared_attn"] = {
+            "ln1": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+            "attn": common.attn_specs(cfg),
+            "ln2": common.rmsnorm_spec(cfg.d_model, cfg.param_dtype),
+            "mlp": common.mlp_specs(cfg),
+        }
     return specs
 
 
 # ------------------------------- caches ---------------------------------- #
 
+def _kv_specs(n: int, batch: int, max_len: int, cfg) -> dict:
+    shape = (n, batch, max_len, cfg.n_kv, cfg.head_dim)
+    axes = ("layers", "batch", "kv_seq", "kv_heads", "head_dim")
+    return {"k": ParamSpec(shape, axes, dtype=cfg.compute_dtype),
+            "v": ParamSpec(shape, axes, dtype=cfg.compute_dtype)}
+
+
+def _ssm_state_specs(cfg, batch: int) -> dict:
+    """Per layer: the conv's last inputs and the float32 SSM state."""
+    di, n, cv = cfg.d_inner, cfg.ssm_state, cfg.ssm_conv
+    mamba2 = cfg.family == "hybrid" or cfg.mamba_version == 2
+    conv = ParamSpec((cfg.n_layers, batch, cv - 1,
+                      di + (2 * n if mamba2 else 0)),
+                     ("layers", "batch", None, "inner"),
+                     dtype=cfg.compute_dtype)
+    if mamba2:
+        ssm = ParamSpec((cfg.n_layers, batch, cfg.ssm_heads, n,
+                         di // cfg.ssm_heads),
+                        ("layers", "batch", "heads", "state", None),
+                        dtype="float32")
+    else:
+        ssm = ParamSpec((cfg.n_layers, batch, di, n),
+                        ("layers", "batch", "inner", "state"),
+                        dtype="float32")
+    return {"conv": conv, "ssm": ssm}
+
+
 def cache_specs(cfg, batch: int, max_len: int) -> dict:
-    """Cache layout for serving."""
-    check_family(cfg)
-    ct = cfg.compute_dtype
-    kv, hd = cfg.n_kv, cfg.head_dim
-    return {
-        "k": ParamSpec((cfg.n_layers, batch, max_len, kv, hd),
-                       ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
-                       dtype=ct),
-        "v": ParamSpec((cfg.n_layers, batch, max_len, kv, hd),
-                       ("layers", "batch", "kv_seq", "kv_heads", "head_dim"),
-                       dtype=ct),
-        "len": ParamSpec((), (), init="zeros", dtype="int32"),
-    }
+    """Cache layout for serving: a KV cache per layer; per-layer conv and
+    SSM states (ssm); both, with a KV cache per application of the shared
+    attention block (hybrid)."""
+    specs: Dict[str, Any] = {}
+    if cfg.family in ("ssm", "hybrid"):
+        specs.update(_ssm_state_specs(cfg, batch))
+    if cfg.family == "hybrid":
+        specs.update(_kv_specs(cfg.n_layers // cfg.attn_every, batch,
+                               max_len, cfg))
+    elif cfg.family != "ssm":
+        specs.update(_kv_specs(cfg.n_layers, batch, max_len, cfg))
+    specs["len"] = ParamSpec((), (), init="zeros", dtype="int32")
+    return specs
 
 
 # ------------------------------- forward --------------------------------- #
@@ -128,18 +153,29 @@ def _mixer_block(cfg, p, x, positions, cache_slice, mode: str):
     """One layer. mode: 'train' | 'prefill' | 'decode'.
     Returns (x, new_cache_slice, aux)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.family in ("ssm", "hybrid"):
+        h = common.rmsnorm(x, p["norm"])
+        fwd = (ssm_mod.mamba1_forward
+               if cfg.family == "ssm" and cfg.mamba_version == 1
+               else ssm_mod.mamba2_forward)
+        state = None if mode == "train" else cache_slice
+        y, new_state = fwd(p["mamba"], h, cfg, state)
+        return x + y, new_state, aux
+
     if mode == "decode":
         x, k, v = _attn_block(cfg, p, x, positions,
                               k_cache=cache_slice["k"],
                               v_cache=cache_slice["v"],
                               cache_len=cache_slice["len"])
-        new_cache = {"k": k, "v": v, "len": cache_slice["len"]}
     else:
         x, k, v = _attn_block(cfg, p, x, positions)
-        new_cache = {"k": k, "v": v} if mode == "prefill" else None
+    new_cache = {"k": k, "v": v} if mode != "train" else None
 
     h = common.rmsnorm(x, p["ln2"])
-    y = common.mlp(p["mlp"], h)
+    if cfg.family == "moe":
+        y, aux = moe_mod.moe_layer(p["moe"], h, cfg)
+    else:
+        y = common.mlp(p["mlp"], h)
     return x + y, new_cache, aux
 
 
@@ -154,38 +190,59 @@ def _unstack(tree):
     return tree.unbind(0)
 
 
+def layer_call(cfg, fn, *args):
+    """``fn(*args)`` for one layer of a stack, under
+    ``torch.utils.checkpoint`` when ``cfg.remat`` and grads are on (the
+    reference's ``jax.checkpoint`` of its scan body)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
 def _run_layers(cfg, params, x, positions, cache, mode: str):
     """The loop over the layer stack (the reference's ``lax.scan``); each
-    layer under ``torch.utils.checkpoint`` when ``cfg.remat`` and grads
-    are on (the reference's ``jax.checkpoint`` of the scan body). Returns
-    (x, new_cache, aux_sum)."""
-    check_family(cfg)
-    layers = _unstack(params["layers"])
-    remat = cfg.remat and torch.is_grad_enabled()
+    layer through ``layer_call``.
+
+    hybrid (zamba2): after each group of ``attn_every`` Mamba-2 layers, the
+    SHARED block's attention half (``_attn_block``: its ``ln1`` and
+    ``attn``; the reference declares its ``ln2`` and ``mlp`` but does not
+    apply them), its weights reused, outside the remat, with a KV cache
+    per application; the ``n_layers % attn_every`` layers left over have
+    none after them. Returns (x, new_cache, aux_sum)."""
+    keys = ("conv", "ssm") if cfg.family in ("ssm", "hybrid") else ("k", "v")
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    new_k, new_v = [], []
-    for i, lp in enumerate(layers):
+    new = {key: [] for key in keys + ("shared_k", "shared_v")}
+    for i, lp in enumerate(_unstack(params["layers"])):
         cs = None
         if mode == "decode":
-            cs = {"k": cache["k"][i], "v": cache["v"][i],
-                  "len": cache["len"]}
-        if remat:
-            x, ncs, a = checkpoint(_mixer_block, cfg, lp, x, positions, cs,
-                                   mode, use_reentrant=False)
-        else:
-            x, ncs, a = _mixer_block(cfg, lp, x, positions, cs, mode)
+            cs = {key: cache[key][i] for key in keys}
+            if "k" in cs:
+                cs["len"] = cache["len"]
+        x, ncs, a = layer_call(cfg, _mixer_block, cfg, lp, x, positions,
+                               cs, mode)
         aux = aux + a
         if mode != "train":
-            new_k.append(ncs["k"])
-            new_v.append(ncs["v"])
+            for key in keys:
+                new[key].append(ncs[key])
+        if cfg.family == "hybrid" and (i + 1) % cfg.attn_every == 0:
+            app = i // cfg.attn_every
+            kv = {}
+            if mode == "decode":
+                kv = {"k_cache": cache["k"][app], "v_cache": cache["v"][app],
+                      "cache_len": cache["len"]}
+            x, k, v = _attn_block(cfg, params["shared_attn"], x, positions,
+                                  **kv)
+            new["shared_k"].append(k)
+            new["shared_v"].append(v)
     new_cache = None
-    if mode == "decode":
-        new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v),
-                     "len": cache["len"] + positions.shape[-1]}
-    elif mode == "prefill":
-        new_cache = {"k": torch.stack(new_k), "v": torch.stack(new_v),
-                     "len": torch.tensor(x.shape[1], dtype=torch.int32,
-                                         device=x.device)}
+    if mode != "train":
+        new_cache = {key: torch.stack(new[key]) for key in keys}
+        if cfg.family == "hybrid":
+            new_cache["k"] = torch.stack(new["shared_k"])
+            new_cache["v"] = torch.stack(new["shared_v"])
+        new_cache["len"] = (
+            cache["len"] + positions.shape[-1] if mode == "decode" else
+            torch.tensor(x.shape[1], dtype=torch.int32, device=x.device))
     return x, new_cache, aux
 
 
@@ -262,7 +319,7 @@ def prefill(cfg, params, batch, max_len: Optional[int] = None
     x, cache, _ = _run_layers(cfg, params, x, positions, None, "prefill")
     x = common.rmsnorm(x, params["final_norm"])
     logits = _unembed(cfg, params, x[:, -1:])
-    if max_len is not None and max_len > s:
+    if max_len is not None and max_len > s and cfg.family != "ssm":
         pad = max_len - s
         for key in ("k", "v"):
             cache[key] = torch.nn.functional.pad(
@@ -280,3 +337,17 @@ def decode_step(cfg, params, cache, tokens: torch.Tensor
     x = common.rmsnorm(x, params["final_norm"])
     logits = _unembed(cfg, params, x)
     return logits[:, 0], cache
+
+
+def moe_routing(cfg, params, tokens: torch.Tensor
+                ) -> Tuple[torch.Tensor, moe_mod.Routing]:
+    """The routing that MoE layer 0 takes in a prefill of ``tokens``
+    (B, S), its attention half run as ``prefill`` runs it. Returns (the
+    residual stream entering its MoE half (B, S, d), ``moe.route_layer``'s
+    ``Routing`` of it after ``ln2``)."""
+    x = _embed(cfg, params, tokens)
+    positions = torch.arange(x.shape[1], device=x.device)
+    lp = _unstack(params["layers"])[0]
+    x, _, _ = _attn_block(cfg, lp, x, positions)
+    h = common.rmsnorm(x, lp["ln2"])
+    return x, moe_mod.route_layer(lp["moe"], h, cfg)

@@ -51,21 +51,34 @@ def _map_leaves(fn, params, grads, state):
     return _chunked(fn, params, grads, state)
 
 
+# float32 temporaries of the sliced update, in elements: slices of the
+# leading axis are batched (``torch.vmap``) up to this size
+_SLICE_ELEMS = 1 << 24
+
+
 def _chunked(fn, p, g, st):
-    """Apply an update per slice of the leading (layer-stack) axis, as the
-    reference's ``lax.map`` does: float32 temporaries of one layer, never
-    of a whole stacked leaf. A per-slice reduction (Adafactor's update
-    RMS) is taken per layer, as there."""
+    """Apply an update per slice of the leading axis of a leaf of three or
+    more dims, as the reference's ``lax.map`` does: float32 temporaries
+    of a few slices, never of a whole stacked leaf, and a per-slice
+    reduction (Adafactor's update RMS) taken per slice. As many slices as
+    fit ``_SLICE_ELEMS`` (at least one) go through ``torch.vmap(fn)`` at
+    once, so a leaf of many small slices (zamba2's shared attention (d,
+    heads, head_dim): 3584 of them) costs a few launches per op, not one
+    per slice."""
     if p.ndim >= 3 and p.shape[0] > 1:
+        n = p.shape[0]
+        k = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
         new_p = torch.empty_like(p)
         new_st = None
-        for i in range(p.shape[0]):
-            pi, sti = fn(p[i], g[i], tree_map(lambda a: a[i], st))
+        for i in range(0, n, k):
+            j = min(i + k, n)
+            pi, sti = torch.vmap(fn)(p[i:j], g[i:j],
+                                     tree_map(lambda a: a[i:j], st))
             if new_st is None:
                 new_st = tree_map(
-                    lambda a: a.new_empty((p.shape[0],) + a.shape), sti)
-            new_p[i] = pi
-            tree_map(lambda dst, src: dst[i].copy_(src), new_st, sti)
+                    lambda a: a.new_empty((n,) + a.shape[1:]), sti)
+            new_p[i:j] = pi
+            tree_map(lambda dst, src: dst[i:j].copy_(src), new_st, sti)
         return new_p, new_st
     return fn(p, g, st)
 

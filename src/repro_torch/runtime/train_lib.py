@@ -51,7 +51,10 @@ def make_train_step(model: Model,
                                  state["params"])
         with torch.enable_grad():
             loss, mets = model.loss(live, batch)
-            flat = torch.autograd.grad(loss, tree_leaves(live))
+            # a param the loss does not reach (zamba2's shared block's
+            # ln2/mlp) gets a zero grad, as jax.grad gives it
+            flat = torch.autograd.grad(loss, tree_leaves(live),
+                                       materialize_grads=True)
         it = iter(flat)
         grads = spec_mod.tree_map(lambda _: next(it), live)
         loss = loss.detach()

@@ -16,7 +16,7 @@ and ``run_trials`` on the card to the CPU; the table forms of K1 and K3
 and K4s per trial (every block of every trial of a card) to their plain
 versions, and ``sharded_pod`` on a (2, 2, 2) mesh of one card's entries
 to the single-device trial engines; one LM train step on the card to the
-CPU, and a checkpoint round trip of card tensors (bfloat16, int32, a
+CPU for each model family (dense, vlm, moe, ssm, hybrid, encdec), and a checkpoint round trip of card tensors (bfloat16, int32, a
 ``ShardedLattice`` restored onto other meshes of the card).
 """
 import hashlib
@@ -884,8 +884,11 @@ def test_sharded_pod_k_mcs_on_one_card_equals_pallas_fused(cuda,
 
 # --------------------- the LM appendix on the card ----------------------- #
 
-@pytest.mark.parametrize("arch,optimizer", [("granite-3-8b", "adamw"),
-                                            ("pixtral-12b", "adafactor")])
+@pytest.mark.parametrize("arch,optimizer", [
+    ("granite-3-8b", "adamw"), ("pixtral-12b", "adafactor"),
+    ("grok-1-314b", "adamw"), ("kimi-k2-1t-a32b", "adafactor"),
+    ("falcon-mamba-7b", "adamw"), ("zamba2-7b", "adamw"),
+    ("whisper-small", "adamw")])
 def test_lm_train_step_on_the_card_equals_the_cpu(cuda, arch, optimizer):
     """One train step of a reduced model (float32) on the card against the
     same step on the CPU: the loss within 1e-5 relative, every optimizer

@@ -2,7 +2,9 @@
 ``runtime.train_lib``) against the JAX package's, on the CPU.
 
 Every dense and vlm architecture runs at its ``reduced()`` size with the
-reference's own weights carried across (``convert.params_from_jax``).
+reference's own weights carried across (``convert.params_from_jax``); the
+other families are ``test_torch_lm_families.py``'s, and the full configs'
+sizes here cover every architecture.
 Random draws on the JAX side are scoped to
 ``jax.threefry_partitionable(False)``, the scheme the port reproduces.
 Tolerances, stated once:
@@ -50,8 +52,6 @@ from repro_torch.optim import (adafactor, adamw, clip_by_global_norm,
 from repro_torch.runtime import train_lib
 
 DENSE = sorted(a for a, c in ARCHS.items() if c.family in ("dense", "vlm"))
-OTHER = sorted(a for a, c in ARCHS.items()
-               if c.family not in ("dense", "vlm"))
 TRAIN = (32, 2)            # seq, batch of the train steps
 
 
@@ -368,7 +368,7 @@ def test_initialize_matches_reference(monkeypatch):
             assert b.dtype == torch.float32 and _ulps(a, b.numpy()) <= 4
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_param_counts_and_shapes_of_full_configs(arch):
     """Full (unreduced) configs: counts, bytes and shapes equal the
     reference's, on the ``meta`` device (nothing allocated)."""
@@ -391,12 +391,6 @@ def test_granite_full_width_size():
     m = build_model(ARCHS["granite-3-8b"].replace(n_layers=8))
     assert m.cfg.vocab_padded == 49408
     assert 1.9e9 < m.n_params() < 2.1e9
-
-
-@pytest.mark.parametrize("arch", OTHER)
-def test_unported_families_raise(arch):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        build_model(ARCHS[arch].reduced())
 
 
 def test_partition_tree_waits_for_its_slice():
