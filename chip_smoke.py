@@ -104,16 +104,28 @@ each with the launch counts set to 0 just before it and read just after:
   at 1 x 1024, held to 1e-3, as every family's float32 check is) and
   kimi-k2-1t-a32b with 1 of 61 (prefill 1 x 4096, decode; ``moe_layer``
   on 64 tokens held to a float32 loop over the kept choices through the
-  experts' own slices); ``[lm/ssm]`` falcon-mamba-7b serving at its 64
-  layers (prefill 2 x 4096, decode; float32 decode against a prefill at
-  8 layers) and training at 8 (six AdamW steps of 2 x 4096, every grad
-  norm finite, step 1's batch's loss lower after them; ms per step,
-  tokens/s, the model-FLOPs share, peak memory, one step's device
+  experts' own slices); ``[lm/ssm]`` falcon-mamba-7b serving at 16 of
+  its 64 layers (prefill 2 x 4096, decode; float32 decode against a
+  prefill at 2 layers) and training at 2 (six AdamW steps of 2 x 4096,
+  every grad norm finite, step 1's batch's loss lower after them; ms per
+  step, tokens/s, the model-FLOPs share, peak memory, one step's device
   launches under the profiler); ``[lm/hybrid]`` zamba2-7b at 12 of 81
   layers (two shared-attention applications) at its own ``ssm_chunk`` of
   128, the same train checks, prefill, decode and the float32 check; and
   ``[lm/encdec]`` whisper-small whole, the same at 2 x 4096 decoder
   tokens over 1500 frames.
+* The LM appendix's multi-device layer on the one card: ``[lm/mesh]``
+  phase 29's six AdamW steps on a (1, 1) ``data x model`` mesh of
+  ``cuda:0`` in a world of one under NCCL, the state placed as DTensors
+  by the sharding rules and ``activation_sharding`` on, held bit for bit
+  to phase 29's losses, grad norms and per-leaf checksums of the final
+  params (a failure, naming the first leaf that differs), with the
+  dry-run of the same cell's roofline bound and peak bytes beside the
+  measured step and memory; ``[lm/pipeline]`` ``pipeline_apply`` of
+  granite-3-8b's 8 decoder layers at full width in float32, 2 per stage
+  over four ``cuda:0`` stages, a batch of 4 x 4096 at ``n_micro`` 4 and
+  1, bit for bit the sequential composition per micro-batch and within
+  1e-5 of the whole batch.
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -250,13 +262,18 @@ LM_DECODES, H100_BF16_FLOPS = 8, 989.4e12
 # Mamba-2 then holds every token's (heads, state, head_dim) state (3.75 GB
 # at zamba2-7b's widths, 15 GB at 4095 tokens); kimi-k2's moe_layer held on
 # MOE_CHECK_TOKENS tokens to a loop over the kept choices; falcon-mamba-7b
-# serving at all MAMBA_SERVE_LAYERS and training at MAMBA_TRAIN_LAYERS;
+# serving at MAMBA_SERVE_LAYERS of 64 and training at MAMBA_TRAIN_LAYERS
+# (cut from 64 and 8 to keep the script under its time with phases
+# 36-37: its training step is host-bound, about 6 s at 4 layers);
 # zamba2-7b at ZAMBA_LAYERS of 81 (two shared-attention applications);
 # whisper-small whole. Prefills and steps of LM_BATCH x LM_SEQ tokens
 # (kimi-k2 1 x LM_SEQ), LM_STEPS AdamW steps each.
 GROK_LAYERS, KIMI_LAYERS, LM_CHECK_SEQ, MOE_CHECK_TOKENS = 2, 1, 1024, 64
-MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS, ZAMBA_LAYERS = 64, 8, 12
+MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS, ZAMBA_LAYERS = 16, 2, 12
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_RESUME = 8, 2, 5, 12
+# the pipeline of phase 37: granite-3-8b's LM_LAYERS decoder layers over
+# PIPE_STAGES stages of cuda:0, a float32 batch of PIPE_BATCH x LM_SEQ
+PIPE_STAGES, PIPE_BATCH = 4, 4
 # a sharded_fused lattice after CKPT_MCS MCS at SIDE, saved on SH_GRID and
 # restored onto CKPT_GRID and whole
 CKPT_MCS, CKPT_GRID = 10, (4, 1)
@@ -399,7 +416,9 @@ def counted_rolls(torch, rolls, key):
 def lm_phases(torch, np, dev, card, park3, mesh4):
     """The LM appendix's paths on the card (phases 28-31): ``[lm/serve]``,
     ``[lm/train]``, ``[lm/restart]`` and ``[ckpt]``. Every figure is
-    printed on its own line beside the card."""
+    printed on its own line beside the card. Returns what phase 29 kept
+    for phase 36: its losses, grad norms, steady step ms, peak memory,
+    launches per step and a checksum per final param leaf."""
     from repro_torch.configs import ARCHS as LM_ARCHS
     from repro_torch.configs import SHAPES, ShapeConfig
     from repro_torch.core import engines, lattice, sharded, threefry
@@ -486,13 +505,15 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
     # layer's output by O(1) at this width, and the loss climbs
     step_fn = train_lib.make_train_step(model, schedule=cosine_schedule())
     first = batch_for_model(model, shape, 0, 0, device=dev)
-    step_s, losses, lrs = [], [], []
+    step_s, losses, lrs, norms = [], [], [], []
     for s in range(LM_STEPS):
         batch = batch_for_model(model, shape, s, 0, device=dev)
         ms, (state, met) = once_ms(torch, lambda: step_fn(state, batch))
         step_s.append(ms / 1e3)
         losses.append(float(met["loss"]))
         lrs.append(float(met["lr"]))
+        norms.append(float(met["grad_norm"]))
+    kept_params = state["params"]
     with torch.no_grad():
         after = float(model.loss(state["params"], first)[0])
     peak = torch.cuda.max_memory_allocated()
@@ -521,7 +542,12 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
     print(f"[lm/train] one more step under torch.profiler: {step_launches} "
           f"device launches, device busy {busy_ms}, cuBLAS products "
           f"{gemm_share} of it; the largest kernels by device ms: {top}")
-    del state, met, batch, first
+    # what phase 36 holds its sharded run to (the extra profiled step is
+    # not part of the six)
+    kept = {"losses": losses, "norms": norms, "step_ms": steady * 1e3,
+            "peak": peak, "launches": step_launches,
+            "sums": leaf_sums(torch, kept_params)}
+    del state, met, batch, first, kept_params
 
     # ---- 30. [lm/restart] the fault-tolerant loop at the reduced size ----
     rmodel = build_model(LM_ARCHS[LM_ARCH].reduced())
@@ -642,6 +668,7 @@ def lm_phases(torch, np, dev, card, park3, mesh4):
           f"lattice, K4s on {CKPT_GRID} equal to the saved counts "
           f"{counts.tolist()}; the bfloat16 and int32 leaves bit for bit; "
           f"{card}")
+    return kept
 
 
 def lm_family_phases(torch, np, dev, card, park3, mesh4):
@@ -910,8 +937,8 @@ def lm_family_phases(torch, np, dev, card, park3, mesh4):
     err = decode_vs_prefill(cfg.replace(n_layers=MAMBA_TRAIN_LAYERS,
                                         compute_dtype="float32"), cut,
                             LM_BATCH, LM_CHECK_SEQ)
-    print(f"[lm/ssm] falcon-mamba-7b at full width, all "
-          f"{MAMBA_SERVE_LAYERS} layers ({model.n_params():,} params, "
+    print(f"[lm/ssm] falcon-mamba-7b at full width, "
+          f"{MAMBA_SERVE_LAYERS} of 64 layers ({model.n_params():,} params, "
           f"bfloat16), init {init_ms / 1e3:.2f} s; prefill {LM_BATCH} x "
           f"{LM_SEQ} tokens {prefill_ms:.1f} ms, decode {decode_ms:.2f} ms "
           f"per token (mean of {LM_DECODES}); at {MAMBA_TRAIN_LAYERS} layers,"
@@ -974,6 +1001,212 @@ def lm_family_phases(torch, np, dev, card, park3, mesh4):
           f"{time.perf_counter() - t_phase:.1f} s; {card}")
     del params, model
     free()
+
+
+def leaf_sums(torch, tree):
+    """Per leaf of a tree of (DTensor or plain) tensors on the card, in
+    ``tree_leaves`` order: (path, the sum of its raw words as int64, the
+    sum of its squares in float64). Equal sums of the raw words and the
+    squares stand for equal bits."""
+    from torch.distributed.tensor import DTensor
+    ints = {1: torch.int8, 2: torch.int16, 4: torch.int32, 8: torch.int64}
+    out = []
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            for k in sorted(t):
+                walk(t[k], f"{path}/{k}" if path else k)
+            return
+        if isinstance(t, DTensor):
+            t = t.to_local()
+        w = t.detach().view(ints[t.element_size()])
+        out.append((path, int(torch.sum(w, dtype=torch.int64)),
+                    float(torch.sum(t.detach().double().square()))))
+    walk(tree, "")
+    return out
+
+
+def whole_value(t):
+    """A DTensor's global value as a plain tensor; a tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+def lm_mesh_phases(torch, np, dev, card, kept):
+    """The LM appendix's multi-device layer on the one card (phases
+    36-37): ``[lm/mesh]`` phase 29's six AdamW steps on a (1, 1) ``data x
+    model`` mesh of ``cuda:0`` in a world of one under NCCL, the state
+    placed by the rules and ``activation_sharding`` on, held to what
+    phase 29 kept, and the dry-run of the same cell beside it;
+    ``[lm/pipeline]`` ``pipeline_apply`` of granite-3-8b's decoder layers
+    at full width (float32), 2 per stage, over 4 stages on four
+    ``cuda:0`` entries, held to the sequential composition."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS as LM_ARCHS
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import threefry
+    from repro_torch.data import batch_for_model
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import build_model, spec, transformer
+    from repro_torch.models.spec import tree_map
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.parallel.ctx import activation_sharding
+    from repro_torch.parallel.pipeline import pipeline_apply, split_stages
+    from repro_torch.parallel.sharding import distribute_batch, make_rules
+    from repro_torch.runtime import train_lib
+
+    # ---- 36. [lm/mesh] phase 29's steps on a (1, 1) mesh ----
+    t_phase = time.perf_counter()
+    note = "NCCL_SOCKET_IFNAME as the machine sets it"
+    if "NCCL_SOCKET_IFNAME" not in os.environ:
+        # a world of one talks to no other host: the loopback suffices on
+        # a machine without a network
+        os.environ["NCCL_SOCKET_IFNAME"] = "lo"
+        note = "NCCL_SOCKET_IFNAME=lo set by this phase"
+    dist.init_process_group("nccl", store=dist.HashStore(), rank=0,
+                            world_size=1, device_id=torch.device("cuda", 0))
+    cfg = LM_ARCHS[LM_ARCH].replace(n_layers=LM_LAYERS)
+    model = build_model(cfg)
+    shape = ShapeConfig("train_4k", LM_SEQ, LM_BATCH, "train")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rules = make_rules(mesh, dict(cfg.rule_overrides), "train",
+                           LM_BATCH)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train_lib.place_state(
+            model, train_lib.init_state(model, threefry.PRNGKey(0),
+                                        device=dev), mesh, rules)
+        step_fn = train_lib.make_train_step(model,
+                                            schedule=cosine_schedule())
+        losses, norms, walls, hosts = [], [], [], []
+        for s in range(LM_STEPS):
+            batch = distribute_batch(
+                batch_for_model(model, shape, s, 0, device=dev), mesh, rules)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with activation_sharding(mesh, rules):
+                state, met = step_fn(state, batch)
+            hosts.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            losses.append(float(whole_value(met["loss"])))
+            norms.append(float(whole_value(met["grad_norm"])))
+        peak = torch.cuda.max_memory_allocated()
+        sums = leaf_sums(torch, state["params"])
+
+        def step_once():
+            with activation_sharding(mesh, rules):
+                step_fn(state, batch)
+        _, _, _, launches = lm_step_profile(torch, step_once)
+        del state, met, batch
+    finally:
+        dist.destroy_process_group()
+    steady = sum(walls[1:]) / (LM_STEPS - 1)
+    host_share = sum(hosts[1:]) / sum(walls[1:])
+    check(all(np.isfinite(losses)) and all(np.isfinite(norms)),
+          f"[lm/mesh] losses {losses}, grad norms {norms}")
+    bits = (losses == kept["losses"] and norms == kept["norms"]
+            and sums == kept["sums"])
+    first = next(((a[0], a[1:], b[1:]) for a, b in zip(sums, kept["sums"])
+                  if a != b), None)
+    check(bits, f"[lm/mesh] not bit for bit to phase 29: losses {losses} "
+                f"against {kept['losses']}, grad norms {norms} against "
+                f"{kept['norms']}; first param leaf that differs (path, "
+                f"(word sum, square sum) here, in phase 29) {first}")
+    same = ("equal bit for bit to phase 29 (losses, grad norms, every "
+            f"param leaf's checksum of {len(sums)})")
+    print(f"[lm/mesh] {LM_ARCH} {LM_LAYERS} layers on a (1, 1) data x "
+          f"model mesh of cuda:0 (NCCL, a world of one; {note}), state "
+          f"placed by the rules, activation_sharding on, phase 29's "
+          f"{LM_STEPS} AdamW steps of {LM_BATCH} x {LM_SEQ}: {same}; "
+          f"{steady * 1e3:.1f} ms per step after the first (first "
+          f"{walls[0] * 1e3:.1f}; phase 29 {kept['step_ms']:.1f}), host "
+          f"share {host_share:.3f} (the call's return over the card's "
+          f"finish), {launches} device launches per step (phase 29 "
+          f"{kept['launches']}), max_memory_allocated "
+          f"{peak / 2 ** 30:.2f} GiB (phase 29 {kept['peak'] / 2 ** 30:.2f}); "
+          f"{card}")
+
+    # the dry-run of the same cell on a (1, 1) mesh of a fake world of one
+    dryrun.init_fake_world(1)
+    try:
+        rec = dryrun.lower_lm_cell(
+            LM_ARCH, shape, False, cfg_overrides={"n_layers": LM_LAYERS},
+            mesh=make_mesh((1, 1), ("data", "model"), device_type="cpu"))
+    finally:
+        dist.destroy_process_group()
+    rl = rec["roofline"]
+    print(f"[lm/mesh] the dry-run of the same cell on (1, 1): "
+          f"{rl['flops_per_chip']:.4g} FLOPs, {rl['bytes_per_chip']:.4g} "
+          f"bytes (unfused), compute {rl['compute_s'] * 1e3:.1f} ms, memory "
+          f"{rl['memory_s'] * 1e3:.1f} ms, collective "
+          f"{rl['collective_s'] * 1e3:.1f} ms: bound {rl['bound_s'] * 1e3:.1f}"
+          f" ms ({rl['dominant']}) against the measured "
+          f"{steady * 1e3:.1f} ms ({rl['bound_s'] / steady:.3f} of it); "
+          f"peak live {rec['memory']['peak_live_bytes'] / 2 ** 30:.2f} GiB "
+          f"(arguments {rec['memory']['argument_size_in_bytes'] / 2 ** 30:.2f}"
+          f") against max_memory_allocated {peak / 2 ** 30:.2f}; useful-FLOPs "
+          f"ratio {rl['useful_flops_ratio']:.3f}; traced in "
+          f"{rec['trace_s']} s; phase 36 {time.perf_counter() - t_phase:.1f} "
+          f"s; {card}")
+    del model
+    torch.cuda.empty_cache()
+
+    # ---- 37. [lm/pipeline] GPipe over four stages of cuda:0 ----
+    t_phase = time.perf_counter()
+    cfg32 = cfg.replace(param_dtype="float32", compute_dtype="float32")
+    layers = spec.initialize(build_model(cfg32).param_specs["layers"],
+                             threefry.PRNGKey(0), dev)
+    stages = split_stages(layers, PIPE_STAGES)
+    x = threefry.normal(threefry.PRNGKey(3), (PIPE_BATCH, LM_SEQ,
+                                              cfg.d_model), device=dev)
+    positions = torch.arange(LM_SEQ, device=dev)
+
+    def block(p, h):
+        for lp in transformer._unstack(p):
+            h, _, _ = transformer._mixer_block(cfg32, lp, h, positions,
+                                               None, "train")
+        return h
+
+    def stage(i):
+        return tree_map(lambda a: a[i], stages)
+
+    def sequential(xs):
+        for i in range(PIPE_STAGES):
+            xs = block(stage(i), xs)
+        return xs
+
+    devices = [dev] * PIPE_STAGES
+    with torch.no_grad():
+        seq_ms, whole = once_ms(torch, lambda: sequential(x))
+        lines = []
+        for n_micro in (4, 1):
+            pipe_ms, got = once_ms(torch, lambda: pipeline_apply(
+                block, stages, x, n_micro, devices))
+            per_micro = torch.cat([sequential(xm) for xm in
+                                   x.reshape(n_micro, -1, *x.shape[1:])])
+            err = float((got - whole).abs().max())
+            check(torch.equal(got, per_micro),
+                  f"[lm/pipeline] n_micro {n_micro}: the pipeline differs "
+                  f"from the sequential composition per micro-batch")
+            check(bool(((got - whole).abs()
+                        <= 1e-5 + 1e-5 * whole.abs()).all()),
+                  f"[lm/pipeline] n_micro {n_micro}: beyond 1e-5 of the "
+                  f"whole batch: max |err| {err}")
+            lines.append(f"n_micro {n_micro}: {pipe_ms:.1f} ms, equal bit "
+                         f"for bit to the sequential composition per "
+                         f"micro-batch, max |err| {err:.3g} against the "
+                         f"whole batch")
+    print(f"[lm/pipeline] {LM_ARCH}'s decoder layers at full width "
+          f"(float32), {LM_LAYERS // PIPE_STAGES} per stage over "
+          f"{PIPE_STAGES} stages on cuda:0, batch {PIPE_BATCH} x {LM_SEQ}: "
+          f"{'; '.join(lines)}; the sequential loop over the whole batch "
+          f"{seq_ms:.1f} ms; phase 37 {time.perf_counter() - t_phase:.1f} "
+          f"s; {card}")
+    del layers, stages, x, whole, got, per_micro
+    torch.cuda.empty_cache()
 
 
 def lm_step_profile(torch, fn):
@@ -3065,12 +3298,15 @@ def main():
           "cache hit, equal to its direct run_trials")
 
     # ---- 28-31. the LM appendix and the checkpoint ----
-    lm_phases(torch, np, dev, card, park3, mesh4)
+    kept = lm_phases(torch, np, dev, card, park3, mesh4)
 
     # ---- 32-35. the LM appendix's moe, ssm, hybrid and encdec families ----
     lm_family_phases(torch, np, dev, card, park3, mesh4)
 
-    # ---- 36. the kernel table ----
+    # ---- 36-37. the LM appendix on a mesh and a pipeline ----
+    lm_mesh_phases(torch, np, dev, card, kept)
+
+    # ---- 38. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,

@@ -14,8 +14,10 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.ctx import local_einsum, local_matmul
 from .spec import ParamSpec
 
 
@@ -74,9 +76,9 @@ def attn_specs(cfg, cross: bool = False) -> dict:
 def qkv_proj(p: dict, x: torch.Tensor, cfg
              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     ct = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+    q = local_einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
+    k = local_einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
+    v = local_einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
     if "bq" in p:
         q = q + p["bq"].to(ct)
         k = k + p["bk"].to(ct)
@@ -108,8 +110,11 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (flash-style) when T > chunk — O(S * chunk) score memory, each chunk
     recomputed in the backward pass (the reference's ``jax.checkpoint``
     on its scan body).
-    Returns (B, S, H, hd).
+    Returns (B, S, H, hd). DTensor inputs go through ``_gqa_sharded``.
     """
+    if isinstance(q, DTensor):
+        return _gqa_sharded(q, k, v, causal=causal, q_offset=q_offset,
+                            kv_len=kv_len, chunk=chunk)
     b, sq, h, hd = q.shape
     t = k.shape[1]
     kv = k.shape[2]
@@ -176,8 +181,48 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return finish(a_run, d_run)
 
 
+def _gqa_sharded(q, k, v, *, causal, q_offset, kv_len, chunk):
+    """``gqa_attention`` of DTensors on each rank's rows (``local_map``):
+    the batch keeps its shards, the queries keep a shard of the sequence
+    (their causal offset shifted by the shard's start) while k and v are
+    gathered whole along it, every other dim is gathered. DTensor's own
+    strategies for the score products flatten sharded dims, which some
+    versions refuse. Grads: q's in its layout; k's and v's partial sums
+    over the mesh dims that split the queries' sequence."""
+    from torch.distributed.tensor import Partial, Replicate
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..parallel.ctx import local_value
+    q_pl, kv_pl, kv_grad = [], [], []
+    for p in q.placements:
+        if p.is_shard(0):
+            q_pl.append(p), kv_pl.append(p), kv_grad.append(p)
+        elif p.is_shard(1):
+            q_pl.append(p), kv_pl.append(Replicate())
+            kv_grad.append(Partial())
+        else:
+            q_pl.append(Replicate()), kv_pl.append(Replicate())
+            kv_grad.append(Replicate())
+    mesh = q.device_mesh
+    start = compute_local_shape_and_global_offset(q.shape, mesh, q_pl)[1][1]
+    q_offset, kv_len = local_value(q_offset), local_value(kv_len)
+
+    def core(ql, kl, vl):
+        return gqa_attention(ql, kl, vl, causal=causal,
+                             q_offset=q_offset + start, kv_len=kv_len,
+                             chunk=chunk)
+    return local_map(core, out_placements=(tuple(q_pl),),
+                     in_placements=(tuple(q_pl), tuple(kv_pl),
+                                    tuple(kv_pl)),
+                     in_grad_placements=(tuple(q_pl), tuple(kv_grad),
+                                         tuple(kv_grad)),
+                     device_mesh=mesh, redistribute_inputs=True)(q, k, v)
+
+
 def attn_out(p: dict, y: torch.Tensor) -> torch.Tensor:
-    return torch.einsum("bshk,hkd->bsd", y, p["wo"].to(y.dtype))
+    return local_einsum("bshk,hkd->bsd", y, p["wo"].to(y.dtype))
 
 
 # --------------------------------- mlp ----------------------------------- #
@@ -202,9 +247,9 @@ def silu(x: torch.Tensor) -> torch.Tensor:
 
 def mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
     ct = x.dtype
-    h = x @ p["wi"].to(ct)
+    h = local_matmul(x, p["wi"].to(ct))
     if "wg" in p:
-        h = silu(h) * (x @ p["wg"].to(ct))
+        h = silu(h) * local_matmul(x, p["wg"].to(ct))
     else:
         h = F.gelu(h, approximate="tanh") if act == "gelu" else silu(h)
-    return h @ p["wo"].to(ct)
+    return local_matmul(h, p["wo"].to(ct))

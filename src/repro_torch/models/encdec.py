@@ -6,8 +6,7 @@ reference's deviations from upstream Whisper hold here too: rotary
 positions instead of learned or sinusoidal embeddings, RMSNorm, the gated
 MLP of the shared block library. Decode uses a self-attention KV cache
 plus the cross-attention K/V computed once at prefill. The reference's
-``constrain`` calls (activation sharding at each layer's entry) are
-no-ops on one card and are dropped.
+``constrain`` calls stand at each layer's entry, in both bodies.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ from typing import Any, Dict, Tuple
 
 import torch
 
+from ..parallel.ctx import constrain, local_einsum, local_matmul
 from . import common
 from .spec import ParamSpec, stack_layers, torch_dtype
 from .transformer import (_unstack, _update_cache, cross_entropy,
@@ -93,6 +93,7 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
     positions = torch.arange(x.shape[1], device=x.device)
 
     def body(h, lp, _):
+        h = constrain(h, "act_batch", "act_seq", None)
         a = common.rmsnorm(h, lp["ln1"])
         q, k, v = common.qkv_proj(lp["attn"], a, cfg)
         q = common.rotary(q, positions, cfg.rope_theta)
@@ -109,8 +110,8 @@ def encode(cfg, params, frames: torch.Tensor) -> torch.Tensor:
 
 def _cross_kv(cfg, lp, enc_out):
     ct = enc_out.dtype
-    k = torch.einsum("btd,dhk->bthk", enc_out, lp["xattn"]["wk"].to(ct))
-    v = torch.einsum("btd,dhk->bthk", enc_out, lp["xattn"]["wv"].to(ct))
+    k = local_einsum("btd,dhk->bthk", enc_out, lp["xattn"]["wk"].to(ct))
+    v = local_einsum("btd,dhk->bthk", enc_out, lp["xattn"]["wv"].to(ct))
     return k, v
 
 
@@ -120,6 +121,7 @@ def _decoder(cfg, params, tokens, positions, enc_out=None, cache=None,
                      torch_dtype(cfg.compute_dtype))
 
     def body(h, lp, cs):
+        h = constrain(h, "act_batch", "act_seq", None)
         # self attention (causal / cached)
         a = common.rmsnorm(h, lp["ln1"])
         q, k, v = common.qkv_proj(lp["attn"], a, cfg)
@@ -140,7 +142,8 @@ def _decoder(cfg, params, tokens, positions, enc_out=None, cache=None,
         h = h + common.attn_out(lp["attn"], y)
         # cross attention
         a = common.rmsnorm(h, lp["lnx"])
-        qx = torch.einsum("bsd,dhk->bshk", a, lp["xattn"]["wq"].to(a.dtype))
+        qx = local_einsum("bsd,dhk->bshk", a,
+                          lp["xattn"]["wq"].to(a.dtype))
         if mode == "decode":
             xk, xv = cs["xk"], cs["xv"]
         else:
@@ -161,7 +164,7 @@ def _decoder(cfg, params, tokens, positions, enc_out=None, cache=None,
                   "len": cache["len"].expand(cfg.n_layers)}
     x, outs = _loop(cfg, body, x, params["dec_layers"], caches)
     x = common.rmsnorm(x, params["final_norm"])
-    logits = x @ params["unembed"].to(x.dtype)
+    logits = local_matmul(x, params["unembed"].to(x.dtype))
     if cfg.vocab_padded != cfg.vocab:
         mask = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
         logits = torch.where(mask, logits,

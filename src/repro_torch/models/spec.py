@@ -130,14 +130,25 @@ def initialize(tree: Tree, key: torch.Tensor,
     return map_specs(init_leaf, tree)
 
 
-def partition_tree(tree: Tree, rules: Dict[str, Optional[Any]]) -> Tree:
-    """logical axes -> a device layout: waits for the port of
-    ``parallel/ctx.py`` (ROADMAP Queue 1 item 9, the LM on several
-    cards)."""
-    raise NotImplementedError(
-        "spec.partition_tree waits for parallel/ctx.py (ROADMAP Queue 1 "
-        "item 9: parallel/ctx.py, parallel/pipeline.py, launch/mesh.py, "
-        "the LM on several cards)")
+def partition_spec(s: ParamSpec, rules: Dict[str, Optional[Any]]
+                   ) -> Tuple[Any, ...]:
+    """One leaf's logical axes through a rules dict: a mesh-axis name, a
+    tuple of them or ``None`` per dim (the reference's ``PartitionSpec``
+    entries)."""
+    return tuple(rules.get(a) if a is not None else None for a in s.axes)
+
+
+def partition_tree(tree: Tree, rules: Dict[str, Optional[Any]],
+                   mesh=None) -> Tree:
+    """logical axes -> a spec tuple per leaf via a rules dict; with a
+    ``mesh`` (a ``DeviceMesh`` or ``{axis: size}``), the spec fitted to it
+    (``parallel.sharding.fit_spec``: an axis that does not divide its dim,
+    or is used twice, dropped)."""
+    if mesh is None:
+        return map_specs(lambda p, s: partition_spec(s, rules), tree)
+    from ..parallel.sharding import fit_spec
+    return map_specs(
+        lambda p, s: fit_spec(s.shape, partition_spec(s, rules), mesh), tree)
 
 
 def count_params(tree: Tree) -> int:

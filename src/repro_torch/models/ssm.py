@@ -19,6 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.ctx import whole_along
 from .common import silu
 from .spec import ParamSpec
 
@@ -160,6 +161,7 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg,
     di, n = cfg.d_inner, cfg.ssm_state
     dtr = max(1, cfg.d_model // 16)
     ct = x.dtype
+    x = whole_along(x, 1)      # on a mesh: the chunk loop's slices local
 
     xz = x @ p["in_proj"].to(ct)
     xi, z = torch.split(xz, di, dim=-1)
@@ -237,6 +239,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg,
     di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
     ph = di // nh                                      # head dim
     ct = x.dtype
+    x = whole_along(x, 1)      # on a mesh: the chunk loop's indexing local
 
     proj = x @ p["in_proj"].to(ct)
     z, xbc, dt_in = torch.split(proj, [di, di + 2 * n, nh], dim=-1)

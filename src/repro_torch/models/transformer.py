@@ -5,9 +5,10 @@ KV/SSM caches, prefill and decode steps.
 One code path serves minitron-4b, granite-3-8b, qwen1.5-32b, yi-9b,
 pixtral-12b (text backbone + stub image-embedding prefix), kimi-k2,
 grok-1, falcon-mamba-7b and zamba2-7b; whisper-small's encoder-decoder is
-``encdec.py``. The reference's ``constrain`` calls (activation sharding
-constraints around each layer) are no-ops on one card and are dropped;
-they stood at the entry and exit of ``_run_layers``' body.
+``encdec.py``. The reference's ``constrain`` calls stand at the entry
+and exit of each layer (``_run_layers``): under
+``parallel.ctx.activation_sharding`` they lay the residual stream out as
+('act_batch', 'act_seq', None); without it they return their argument.
 """
 from __future__ import annotations
 
@@ -16,6 +17,8 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..parallel.ctx import (constrain, local_linear, local_matmul,
+                            local_rows)
 from . import common, moe as moe_mod, ssm as ssm_mod
 from .spec import ParamSpec, stack_layers, torch_dtype
 
@@ -218,8 +221,10 @@ def _run_layers(cfg, params, x, positions, cache, mode: str):
             cs = {key: cache[key][i] for key in keys}
             if "k" in cs:
                 cs["len"] = cache["len"]
+        x = constrain(x, "act_batch", "act_seq", None)
         x, ncs, a = layer_call(cfg, _mixer_block, cfg, lp, x, positions,
                                cs, mode)
+        x = constrain(x, "act_batch", "act_seq", None)
         aux = aux + a
         if mode != "train":
             for key in keys:
@@ -249,16 +254,23 @@ def _run_layers(cfg, params, x, positions, cache, mode: str):
 def embed_lookup(table: torch.Tensor, tokens: torch.Tensor,
                  dtype) -> torch.Tensor:
     """One-hot-matmul embedding lookup, as the reference's: the backward is
-    a matrix product (deterministic), not a scatter-add with atomics."""
-    v = table.shape[0]
-    onehot = torch.zeros(tokens.shape + (v,), dtype=table.dtype,
-                         device=table.device)
-    onehot.scatter_(-1, tokens.long()[..., None], 1)
-    return (onehot @ table).to(dtype)
+    a matrix product (deterministic), not a scatter-add with atomics. A
+    sharded batch builds each shard's rows against the whole table
+    (``parallel.ctx.local_linear``)."""
+    def lookup(tok, tab):
+        onehot = torch.zeros(tok.shape + (tab.shape[0],), dtype=tab.dtype,
+                             device=tab.device)
+        onehot.scatter_(-1, tok.long()[..., None], 1)
+        return (onehot @ tab).to(dtype)
+    return local_linear(lookup, tokens, table,
+                        {i: i for i in range(tokens.ndim)})
 
 
 def _embed(cfg, params, tokens, img_embeds=None):
     ct = torch_dtype(cfg.compute_dtype)
+    # on a mesh, each rank's one-hot rows are its sequence shard's, not
+    # the whole sequence's (a 256000-word vocab's are 26 GB a rank)
+    tokens = constrain(tokens, "act_batch", "act_seq")
     x = embed_lookup(params["embed"]["tokens"], tokens, ct)
     if cfg.family == "vlm" and img_embeds is not None:
         x = torch.cat([img_embeds.to(ct), x], dim=1)
@@ -268,7 +280,7 @@ def _embed(cfg, params, tokens, img_embeds=None):
 def _unembed(cfg, params, x):
     w = (params["embed"]["tokens"].T if cfg.tie_embeddings
          else params["unembed"])
-    logits = x @ w.to(x.dtype)
+    logits = local_matmul(x, w.to(x.dtype))
     if cfg.vocab_padded != cfg.vocab:
         # mask (not slice) the padded columns, as the reference does
         mask = torch.arange(cfg.vocab_padded, device=x.device) < cfg.vocab
@@ -285,10 +297,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     """Mean of logsumexp (in float32) less the gold logit. The reference
     contracts the logits with a one-hot of the labels, accumulating in
     float32; with one nonzero term that is the gold logit exactly, which
-    the gather reads (its backward writes one value per row)."""
-    logz = torch.logsumexp(logits.float(), dim=-1)
-    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0].float()
-    return torch.mean(logz - gold)
+    the gather reads (its backward writes one value per row). Sharded
+    logits give each rank its own tokens' terms (``local_rows``)."""
+    def per_token(lg, lb):
+        logz = torch.logsumexp(lg.float(), dim=-1)
+        gold = torch.gather(lg, -1, lb.long()[..., None])[..., 0].float()
+        return logz - gold
+    return torch.mean(local_rows(per_token, logits, labels))
 
 
 def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor,
@@ -302,6 +317,9 @@ def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor,
     x = common.rmsnorm(x, params["final_norm"])
     if cfg.family == "vlm":
         x = x[:, -batch["tokens"].shape[1]:]       # loss on text tokens only
+        # the slice gathers a sharded sequence: shard it again before the
+        # logits
+        x = constrain(x, "act_batch", "act_seq", None)
     logits = _unembed(cfg, params, x)
     labels = batch["labels"]
     ce = cross_entropy(logits, labels, cfg.vocab_padded)

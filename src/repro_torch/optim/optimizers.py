@@ -17,6 +17,7 @@ import torch
 
 from ..models import spec as spec_mod
 from ..models.spec import ParamSpec, tree_leaves, tree_map
+from ..parallel.ctx import like
 
 
 class Optimizer(NamedTuple):
@@ -48,39 +49,41 @@ def _map_leaves(fn, params, grads, state):
                for k in params}
         return ({k: v[0] for k, v in out.items()},
                 {k: v[1] for k, v in out.items()})
-    return _chunked(fn, params, grads, state)
+    return _sliced(fn, params, like(grads, params), state)
 
 
 # float32 temporaries of the sliced update, in elements: slices of the
-# leading axis are batched (``torch.vmap``) up to this size
+# leading axis are updated together up to this size
 _SLICE_ELEMS = 1 << 24
 
 
-def _chunked(fn, p, g, st):
+def _sliced(fn, p, g, st):
     """Apply an update per slice of the leading axis of a leaf of three or
     more dims, as the reference's ``lax.map`` does: float32 temporaries
-    of a few slices, never of a whole stacked leaf, and a per-slice
-    reduction (Adafactor's update RMS) taken per slice. As many slices as
-    fit ``_SLICE_ELEMS`` (at least one) go through ``torch.vmap(fn)`` at
-    once, so a leaf of many small slices (zamba2's shared attention (d,
-    heads, head_dim): 3584 of them) costs a few launches per op, not one
-    per slice."""
-    if p.ndim >= 3 and p.shape[0] > 1:
-        n = p.shape[0]
-        k = max(1, _SLICE_ELEMS // max(1, p[0].numel()))
-        new_p = torch.empty_like(p)
-        new_st = None
-        for i in range(0, n, k):
-            j = min(i + k, n)
-            pi, sti = torch.vmap(fn)(p[i:j], g[i:j],
-                                     tree_map(lambda a: a[i:j], st))
-            if new_st is None:
-                new_st = tree_map(
-                    lambda a: a.new_empty((n,) + a.shape[1:]), sti)
-            new_p[i:j] = pi
-            tree_map(lambda dst, src: dst[i:j].copy_(src), new_st, sti)
-        return new_p, new_st
-    return fn(p, g, st)
+    of a few slices, never of a whole stacked leaf. As many slices as fit
+    ``_SLICE_ELEMS`` (at least one) are updated by one call of ``fn``
+    with ``lead=1``, which takes its per-slice reductions (Adafactor's
+    update RMS) over every dim but the leading one; so a leaf of many
+    small slices (zamba2's shared attention (d, heads, head_dim): 3584 of
+    them) costs a few launches per op, not one per slice. Plain tensors
+    and DTensors take the same path: the leading (layer) dim is never
+    sharded, and a DTensor's reductions over its sharded dims are DTensor
+    ops (``torch.vmap`` would take them per shard)."""
+    n = p.shape[0] if p.ndim >= 3 else 1
+    k = max(1, _SLICE_ELEMS // max(1, p[0].numel())) if n > 1 else n
+    if k >= n:
+        # one call; a DTensor's results back in their inputs' layouts
+        new_p, new_st = fn(p, g, st, lead=int(n > 1))
+        return like(new_p, p), tree_map(like, new_st, st)
+    new_p = torch.empty_like(p)
+    new_st = tree_map(torch.empty_like, st)
+    for i in range(0, n, k):
+        pi, sti = fn(p[i:i + k], g[i:i + k],
+                     tree_map(lambda a: a[i:i + k], st), lead=1)
+        new_p[i:i + k] = like(pi, p)
+        tree_map(lambda dst, src: dst[i:i + k].copy_(like(src, dst)),
+                 new_st, sti)
+    return new_p, new_st
 
 
 # --------------------------------- AdamW ---------------------------------- #
@@ -100,7 +103,9 @@ def adamw(b1: float = 0.9, b2: float = 0.95, eps: float = 1e-8,
         c2 = 1.0 - torch.pow(b2, t)
         md = spec_mod.torch_dtype(moment_dtype)
 
-        def upd(p, g, st):
+        def upd(p, g, st, lead=0):
+            # element-wise: lead (the slices updated together) changes
+            # nothing
             gf = g.float()
             m = b1 * st["m"].float() + (1 - b1) * gf
             v = b2 * st["v"].float() + (1 - b2) * gf * gf
@@ -139,7 +144,8 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
         t = (step + 1).float()
         beta = 1.0 - torch.pow(t, -decay)
 
-        def upd(p, g, st):
+        def upd(p, g, st, lead=0):
+            # lead: leading (layer) dims the per-slice RMS keeps apart
             gf = g.float()
             g2 = gf * gf + eps
             if "v" in st:
@@ -154,7 +160,12 @@ def adafactor(eps: float = 1e-30, clip_threshold: float = 1.0,
                 vhat = (vr / denom)[..., None] * vc[..., None, :]
                 u = gf * torch.rsqrt(vhat + eps)
                 new_st = {"vr": vr, "vc": vc}
-            rms_u = torch.sqrt(torch.mean(u * u) + eps)
+            if lead:
+                ms_u = torch.mean(u * u, dim=tuple(range(lead, u.ndim)),
+                                  keepdim=True)
+            else:
+                ms_u = torch.mean(u * u)
+            rms_u = torch.sqrt(ms_u + eps)
             u = u / torch.clamp(rms_u / clip_threshold, min=1.0)
             pf = p.float()
             pf = pf - lr * (u + weight_decay * pf)

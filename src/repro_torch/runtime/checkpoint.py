@@ -8,9 +8,16 @@ Design (DESIGN.md §9):
     tensor as one shard (the reference's single-device array), a
     ``ShardedLattice`` block by block (the reference's addressable shards
     of a lattice on a ('rows', 'cols') mesh);
+  * a DTensor leaf is written as the reference writes a sharded
+    ``jax.Array``: each shard with its bounds, a replicated shard once.
+    In a world of several ranks each rank writes its own shards; rank 0
+    writes the manifest and the marker and publishes the directory after
+    a barrier (on the calling thread: with ``blocking=False`` the shards
+    are written on the writer thread and the barrier and publish wait for
+    ``wait()`` or the next ``save``);
   * restore is layout-agnostic: ``shardings`` places each leaf whole on a
-    device or as a ``ShardedLattice`` on any ``LatticeMesh`` (the elastic
-    path);
+    device, as a ``ShardedLattice`` on any ``LatticeMesh``, or as a
+    DTensor on any ``(DeviceMesh, placements)`` (the elastic path);
   * atomic publish: write to ``step_XXXX.tmp`` then ``os.replace`` it; a
     crash mid-write never corrupts the latest checkpoint;
   * retention: keep the newest K checkpoints;
@@ -34,6 +41,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..core.device import DeviceLike, resolve_device
 from ..core.sharded import ShardedLattice, place
@@ -96,6 +104,50 @@ def _slug(path: str) -> str:
     return path.replace("/", ".")
 
 
+def _world() -> Tuple[int, int]:
+    """(rank, world size) of the initialized process group, else (0, 1)."""
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
+def _dtensor_shards(arr) -> Tuple[List[int], str, int,
+                                  List[Tuple[int, list, Any]]]:
+    """(shape, dtype name, n_shards, [(index, bounds, payload)]) of a
+    DTensor: the shards of every mesh coordinate in mesh order, each bounds
+    once (a replica is written by its first holder), the payload this
+    rank's host copy where it holds that shard, else ``None``."""
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor._utils import \
+        _compute_local_shape_and_global_offset
+    arr = arr.redistribute(arr.device_mesh, tuple(
+        Replicate() if p.is_partial() else p for p in arr.placements))
+    mesh = arr.device_mesh
+    coords = list(np.ndindex(*mesh.shape))
+    mine = tuple(mesh.get_coordinate() or ())
+    shards = []
+    for i, c in enumerate(coords):
+        local, off = _compute_local_shape_and_global_offset(
+            arr.shape, mesh.shape, list(c), arr.placements)
+        shards.append((i, [[int(o), int(o) + int(n)]
+                           for o, n in zip(off, local)], c == mine))
+    out = [(i, b, tensor_to_numpy(arr.to_local()) if here else None)
+           for i, b, here in _once(shards)]
+    return list(arr.shape), _DTYPE_NAMES[arr.dtype], len(coords), out
+
+
+def _once(shards):
+    """The shards whose bounds no earlier shard had (replicas: once)."""
+    seen, out = set(), []
+    for x in shards:
+        key = json.dumps(x[1])
+        if key not in seen:
+            seen.add(key)
+            out.append(x)
+    return out
+
+
 def _host_shards(arr) -> Tuple[List[int], str, List[Tuple[list, Any]]]:
     """(shape, dtype name, [(bounds, host payload)]) of one leaf."""
     if isinstance(arr, ShardedLattice):
@@ -130,6 +182,16 @@ def _save_npy(fn: str, data: np.ndarray, dtype_name: str) -> None:
         f.write(np.ascontiguousarray(data).tobytes())
 
 
+def _place_on_mesh(t: torch.Tensor, mesh, placements):
+    """A whole host tensor as a DTensor on ``mesh``; each rank keeps its
+    shard (every rank read the same files: no collective)."""
+    from torch.distributed.tensor import distribute_tensor
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return distribute_tensor(t.to(dev), mesh, tuple(placements),
+                             src_data_rank=None)
+
+
 class CheckpointManager:
     """Checkpoints of one run under ``directory``. ``device`` is where
     ``restore`` places a leaf that ``shardings`` does not place (default:
@@ -142,39 +204,52 @@ class CheckpointManager:
         self.device = device
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._publish = None      # a multi-rank save's pending publish
 
     # ------------------------------ save ------------------------------- #
     def save(self, step: int, tree: Any, blocking: bool = True) -> str:
         """Snapshot `tree` at `step`. The host copies are taken here; file
-        IO happens inline (blocking) or on the writer thread."""
+        IO happens inline (blocking) or on the writer thread. In a world
+        of several ranks every rank calls it: each writes the shards it
+        holds, rank 0 also a plain leaf, the manifest and the marker."""
         self.wait()
+        rank, world = _world()
         host_data = []
         manifest: Dict[str, Any] = {"step": int(step), "leaves": {}}
         for path, arr in _leaf_paths(tree):
-            shape, dtype_name, shards = _host_shards(arr)
+            if isinstance(arr, DTensor):
+                shape, dtype_name, n, shards = _dtensor_shards(arr)
+                mine = [(i, b, d) for i, b, d in shards if d is not None]
+            else:
+                shape, dtype_name, flat = _host_shards(arr)
+                n = len(flat)
+                shards = _once([(i, b, d) for i, (b, d) in enumerate(flat)])
+                mine = shards if rank == 0 else []
             manifest["leaves"][path] = {
-                "shape": shape, "dtype": dtype_name,
-                "n_shards": len(shards)}
-            host_data.append((path, dtype_name, shards))
+                "shape": shape, "dtype": dtype_name, "n_shards": n,
+                "bounds": {str(i): b for i, b, _ in shards}}
+            host_data.append((path, dtype_name, mine))
 
         final = os.path.join(self.dir, f"step_{int(step):010d}")
+        tmp = final + ".tmp"
+        if world > 1:
+            import torch.distributed as dist
+            if rank == 0:
+                if os.path.exists(tmp):
+                    shutil.rmtree(tmp)
+                os.makedirs(tmp)
+            dist.barrier()
+        elif os.path.exists(tmp):
+            shutil.rmtree(tmp)
 
-        def write():
-            tmp = final + ".tmp"
-            if os.path.exists(tmp):
-                shutil.rmtree(tmp)
-            os.makedirs(tmp)
+        def write_shards():
+            os.makedirs(tmp, exist_ok=True)
             for path, dtype_name, shards in host_data:
-                seen = set()
-                for i, (bounds, data) in enumerate(shards):
-                    key = json.dumps(bounds)
-                    if key in seen:            # replicated shards: write once
-                        continue
-                    seen.add(key)
+                for i, _, data in shards:
                     _save_npy(os.path.join(tmp, f"{_slug(path)}.{i}.npy"),
                               data, dtype_name)
-                    manifest["leaves"][path].setdefault("bounds", {})[
-                        str(i)] = bounds
+
+        def publish():
             with open(os.path.join(tmp, MANIFEST), "w") as f:
                 json.dump(manifest, f)
             with open(os.path.join(tmp, _MARKER), "w") as f:
@@ -184,17 +259,40 @@ class CheckpointManager:
             os.replace(tmp, final)
             self._gc()
 
-        if blocking:
-            write()
+        if world > 1:
+            # the barrier before the publish runs on this thread, in
+            # ``wait``: no collective on the writer thread
+            self._publish = publish if rank == 0 else (lambda: None)
+            if blocking:
+                write_shards()
+                self.wait()
+            else:
+                self._thread = threading.Thread(target=write_shards,
+                                                daemon=True)
+                self._thread.start()
+        elif blocking:
+            write_shards()
+            publish()
         else:
+            def write():
+                write_shards()
+                publish()
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
         return final
 
     def wait(self) -> None:
+        """Finish the outstanding save: join the writer thread and, in a
+        world of several ranks, the barrier and rank 0's publish."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._publish is not None:
+            import torch.distributed as dist
+            publish, self._publish = self._publish, None
+            dist.barrier()
+            publish()
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = self.all_steps()
@@ -218,11 +316,12 @@ class CheckpointManager:
     def restore(self, step: Optional[int] = None,
                 shardings: Optional[Any] = None) -> Tuple[int, Any]:
         """Load a checkpoint. ``shardings``: optional tree of the SAME
-        structure whose leaves are a device (the leaf placed whole) or a
+        structure whose leaves are a device (the leaf placed whole), a
         ``LatticeMesh`` (the leaf, an (..., H, W) lattice, placed as a
         ``ShardedLattice`` on that mesh, whatever mesh saved it: the
-        elastic restart); a leaf it does not name goes whole to the
-        manager's device."""
+        elastic restart) or a ``(DeviceMesh, placements)`` pair (the leaf
+        a DTensor on that mesh, each rank keeping its shard); a leaf it
+        does not name goes whole to the manager's device."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -257,6 +356,8 @@ class CheckpointManager:
             sh = shard_lookup.get(path)
             if isinstance(sh, LatticeMesh):
                 items[path] = place(t, sh)
+            elif isinstance(sh, tuple):
+                items[path] = _place_on_mesh(t, *sh)
             else:
                 items[path] = t.to(resolve_device(
                     self.device if sh is None else sh))

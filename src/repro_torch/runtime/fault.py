@@ -117,5 +117,7 @@ class FaultTolerantLoop:
 def elastic_restore(ckpt: CheckpointManager, new_shardings: Any,
                     step: Optional[int] = None):
     """Resume on a DIFFERENT layout: the checkpoint's global arrays are
-    placed onto `new_shardings` (restore is layout-agnostic)."""
+    placed onto `new_shardings` (restore is layout-agnostic): a device, a
+    ``LatticeMesh`` or a ``(DeviceMesh, placements)`` pair per leaf, so a
+    state saved on one mesh (by either package) lands on another."""
     return ckpt.restore(step, shardings=new_shardings)

@@ -12,6 +12,7 @@ from ..models import spec as spec_mod
 from ..models.registry import Model
 from ..models.spec import ParamSpec, tree_leaves
 from ..optim import clip_by_global_norm, compression, get_optimizer
+from ..parallel.ctx import like
 
 
 def state_specs(model: Model, compress: bool = False) -> Dict[str, Any]:
@@ -56,12 +57,15 @@ def make_train_step(model: Model,
             flat = torch.autograd.grad(loss, tree_leaves(live),
                                        materialize_grads=True)
         it = iter(flat)
-        grads = spec_mod.tree_map(lambda _: next(it), live)
+        # a sharded param's grad in its param's layout (on one device, or
+        # on plain tensors, the grad itself)
+        grads = spec_mod.tree_map(lambda p: like(next(it), p), live)
         loss = loss.detach()
         mets = {k: v.detach() for k, v in mets.items()}
         new_ef = None
         if compress:
             grads, new_ef = compression.compress_grads(grads, state["ef"])
+            new_ef = spec_mod.tree_map(like, new_ef, state["ef"])
         grads, gnorm = clip_by_global_norm(grads, grad_clip)
         lr = schedule(state["step"])
         with torch.no_grad():
@@ -101,6 +105,17 @@ def init_state(model: Model, key: torch.Tensor, compress: bool = False,
              model.init(key, dev) for k, v in specs.items()}
     state["step"] = torch.zeros((), dtype=torch.int32, device=dev)
     return state
+
+
+def place_state(model: Model, state: Dict[str, Any], mesh,
+                rules: Dict[str, Any], compress: bool = False
+                ) -> Dict[str, Any]:
+    """A whole train state (params, the optimizer's moments, the step and
+    the int8 error-feedback residuals) as DTensors on ``mesh``, each leaf
+    laid out by the rules from its spec (the reference's ``in_shardings``
+    of ``named_sharding_tree(state_specs(...))``)."""
+    from ..parallel.sharding import distribute_tree
+    return distribute_tree(state, state_specs(model, compress), mesh, rules)
 
 
 def abstract_state(model: Model, compress: bool = False) -> Dict[str, Any]:

@@ -393,11 +393,6 @@ def test_granite_full_width_size():
     assert 1.9e9 < m.n_params() < 2.1e9
 
 
-def test_partition_tree_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 9"):
-        spec.partition_tree({}, {})
-
-
 def test_concrete_inputs_match_reference():
     """``hash(name)`` folds each input's key, as the reference's: equal in
     one process. Tokens exact, image embeddings within 4 ulps."""
