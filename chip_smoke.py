@@ -98,19 +98,19 @@ each with the launch counts set to 0 just before it and read just after:
   on the restored mesh equal to the saved counts, bfloat16 and int32
   leaves bit for bit.
 * The LM appendix's other families at full width, each model freed
-  before the next: ``[lm/moe]`` grok-1-314b with 2 of its 64 layers
+  before the next: ``[lm/moe]`` grok-1-314b with 1 of its 64 layers
   (prefill 2 x 4095, decode; layer 0's share of dropped choices and what
   sets it; decode against a prefill with float32 compute and ``moe_cf`` 8
   at 1 x 1024, held to 1e-3, as every family's float32 check is) and
   kimi-k2-1t-a32b with 1 of 61 (prefill 1 x 4096, decode; ``moe_layer``
   on 64 tokens held to a float32 loop over the kept choices through the
-  experts' own slices); ``[lm/ssm]`` falcon-mamba-7b serving at 16 of
+  experts' own slices); ``[lm/ssm]`` falcon-mamba-7b serving at 4 of
   its 64 layers (prefill 2 x 4096, decode; float32 decode against a
   prefill at 2 layers) and training at 2 (six AdamW steps of 2 x 4096,
   every grad norm finite, step 1's batch's loss lower after them; ms per
   step, tokens/s, the model-FLOPs share, peak memory, one step's device
-  launches under the profiler); ``[lm/hybrid]`` zamba2-7b at 12 of 81
-  layers (two shared-attention applications) at its own ``ssm_chunk`` of
+  launches under the profiler); ``[lm/hybrid]`` zamba2-7b at 6 of 81
+  layers (one shared-attention application) at its own ``ssm_chunk`` of
   128, the same train checks, prefill, decode and the float32 check; and
   ``[lm/encdec]`` whisper-small whole, the same at 2 x 4096 decoder
   tokens over 1500 frames.
@@ -126,6 +126,14 @@ each with the launch counts set to 0 just before it and read just after:
   over four ``cuda:0`` stages, a batch of 4 x 4096 at ``n_micro`` 4 and
   1, bit for bit the sequential composition per micro-batch and within
   1e-5 of the whole batch.
+* The examples' twins as a user starts them (``[examples]``): each of
+  ``python -m repro_torch.examples.quickstart`` (whole: ``batched``, 128
+  x 128, 400 MCS, K4), ``zhong_ablated_rpsls --mcs 300``,
+  ``park_alliances --L 48 --trials 8 --mcs 200`` (K4 per trial),
+  ``escg_longrun --engine pallas_fused --L 512 --mcs 2500`` and again from
+  its checkpoint (K1, K4) and ``train_lm --preset 13m --steps 20`` as a
+  process on the card, its launches counted, held to the same twin with
+  ``--device cpu`` (at cut lengths where the CPU would take minutes).
 
 It times every kernel and prints one JSON line with the kernel table and,
 last, ``{"ok": true, "device": ...}``. Any failure raises and exits
@@ -264,12 +272,14 @@ LM_DECODES, H100_BF16_FLOPS = 8, 989.4e12
 # MOE_CHECK_TOKENS tokens to a loop over the kept choices; falcon-mamba-7b
 # serving at MAMBA_SERVE_LAYERS of 64 and training at MAMBA_TRAIN_LAYERS
 # (cut from 64 and 8 to keep the script under its time with phases
-# 36-37: its training step is host-bound, about 6 s at 4 layers);
-# zamba2-7b at ZAMBA_LAYERS of 81 (two shared-attention applications);
+# 36-38: its training step is host-bound, about 6 s at 4 layers; grok-1
+# and falcon-mamba's serving depths cut again, 2 and 16 until phase 38);
+# zamba2-7b at ZAMBA_LAYERS of 81 (one shared-attention application; 12
+# and two until phase 38 came);
 # whisper-small whole. Prefills and steps of LM_BATCH x LM_SEQ tokens
 # (kimi-k2 1 x LM_SEQ), LM_STEPS AdamW steps each.
-GROK_LAYERS, KIMI_LAYERS, LM_CHECK_SEQ, MOE_CHECK_TOKENS = 2, 1, 1024, 64
-MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS, ZAMBA_LAYERS = 16, 2, 12
+GROK_LAYERS, KIMI_LAYERS, LM_CHECK_SEQ, MOE_CHECK_TOKENS = 1, 1, 1024, 64
+MAMBA_SERVE_LAYERS, MAMBA_TRAIN_LAYERS, ZAMBA_LAYERS = 4, 2, 6
 RESTART_STEPS, RESTART_EVERY, RESTART_FAIL, RESTART_RESUME = 8, 2, 5, 12
 # the pipeline of phase 37: granite-3-8b's LM_LAYERS decoder layers over
 # PIPE_STAGES stages of cuda:0, a float32 batch of PIPE_BATCH x LM_SEQ
@@ -1207,6 +1217,205 @@ def lm_mesh_phases(torch, np, dev, card, kept):
           f"s; {card}")
     del layers, stages, x, whole, got, per_micro
     torch.cuda.empty_cache()
+
+
+# phase 38: the examples' twins as a user starts them. A twin runs under
+# RUNNER, which prints the kernel launches of its process (and, for
+# train_lm, every step's loss in full) after it; the CPU runs that hold
+# the card's files run at cut lengths where the CPU would take minutes
+# (plain K1 at 512^2 is about 2 s per MCS on eight cores)
+RUNNER = r'''
+import json, runpy, sys
+from repro_torch.kernels import ops
+module, sys.argv = sys.argv[1], sys.argv[1:]
+if module.endswith(".train_lm"):
+    from repro_torch.launch import train
+    class Loop(train.FaultTolerantLoop):
+        def run(self, *a, on_metrics=None, **k):
+            def show(step, m):
+                print("[examples] loss", step, repr(float(m["loss"])))
+                on_metrics(step, m)
+            return super().run(*a, on_metrics=show, **k)
+    train.FaultTolerantLoop = Loop
+cut = [a for a in sys.argv if a.startswith("--cutMcs=")]
+if cut:             # the quickstart fixes its size in code: its MCS cut
+    sys.argv.remove(cut[0])
+    import repro_torch.core as core
+    full = core.RunConfig
+    core.RunConfig = lambda **kw: full(**{**kw, "mcs": int(cut[0][9:])})
+runpy.run_module(module, run_name="__main__", alter_sys=True)
+print("[examples] launches " + json.dumps(ops.launches()), flush=True)
+'''
+EX_QS_CPU_MCS = 40          # quickstart on the CPU: the first 40 of 400 MCS
+EX_ZH_MCS, EX_ZH_CPU_MCS = 300, 40
+EX_PARK = ["--L", "48", "--trials", "8", "--mcs", "200"]
+EX_LR_L, EX_LR_MCS, EX_LR_RESUME = 512, 2500, 3000
+EX_LR_SMALL = (32, 300, 400)    # L, then MCS and resumed MCS, both devices
+EX_LM_STEPS = 20
+EX_LM = ["--steps", str(EX_LM_STEPS)]
+EX_LM_SMALL = ["--steps", "2", "--batch", "2", "--seq", "32"]
+
+
+def examples_phase(torch, np, card):
+    """``[examples]``: each of ``repro_torch.examples``' twins started as
+    ``python -m`` would start it (under ``RUNNER``), on the card at the
+    flags below, every run of its own in a working directory of its own,
+    eight at a time; each held to the same twin with ``--device
+    cpu``: quickstart whole (batched, 128^2, 400 MCS) against the CPU's
+    first 40 MCS (``densities.csv`` a prefix); zhong at 300 MCS against
+    the CPU's 40; Park at ``EX_PARK`` against the CPU at the same flags
+    (printed lines); escg_longrun on ``pallas_fused`` at 512^2 for 2500
+    MCS (checkpoints and snapshots at 1000 and 2000), then resumed to
+    3000, and at 32^2 on both devices (``state.npz`` equal after the run
+    and after its resume); train_lm's 13m preset for 20 steps, and on a
+    batch of 2 x 32 for 2 steps on both devices (losses within relative
+    1e-5). Prints each run's wall time and launches, time-stamped."""
+    from concurrent.futures import ThreadPoolExecutor
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_examples_")
+    # one host thread a process: eight processes share the host's cores,
+    # and the card's runs are bound by the host's launches
+    env = dict(os.environ, OMP_NUM_THREADS="1")
+    env["PYTHONPATH"] = (os.path.join(HERE, "src") + os.pathsep
+                         + env.get("PYTHONPATH", ""))
+
+    def stamp():
+        return f"+{time.perf_counter() - t_phase:.1f}s"
+
+    def chain(tag, name, runs, device):
+        """Runs of one twin in turn in ``work/tag``; returns, per run,
+        (stdout, wall s, launches)."""
+        d = os.path.join(work, tag)
+        os.makedirs(d)
+        out = []
+        for args in runs:
+            t0 = time.perf_counter()
+            p = subprocess.run(
+                [sys.executable, "-c", RUNNER,
+                 f"repro_torch.examples.{name}", *args, "--device", device],
+                capture_output=True, text=True, timeout=600, cwd=d, env=env)
+            wall = time.perf_counter() - t0
+            check(p.returncode == 0, f"[examples] {tag} {args} exited "
+                  f"{p.returncode}:\n{p.stdout[-2000:]}\n{p.stderr[-3000:]}")
+            line = [ln for ln in p.stdout.splitlines()
+                    if ln.startswith("[examples] launches ")][-1]
+            counts = {k: v for k, v in json.loads(
+                line[len("[examples] launches "):]).items() if v}
+            print(f"[examples] {stamp()} {tag} {' '.join(args)}: "
+                  f"{wall:.2f} s, launches {counts}", flush=True)
+            out.append((p.stdout, wall, counts))
+        return out
+
+    lr = ["--engine", "pallas_fused", "--L"]
+    small_lr = [lr + [str(EX_LR_SMALL[0]), "--mcs", str(m)]
+                for m in EX_LR_SMALL[1:]]
+    # the longest first: the batched runs are bound by the host's launches
+    jobs = {
+        "qs_card": ("quickstart", [[]], "cuda"),
+        "zh_card": ("zhong_ablated_rpsls", [["--mcs", str(EX_ZH_MCS)]],
+                    "cuda"),
+        "park_card": ("park_alliances", [EX_PARK], "cuda"),
+        "lr_card": ("escg_longrun", [
+            lr + [str(EX_LR_L), "--mcs", str(EX_LR_MCS)],
+            lr + [str(EX_LR_L), "--mcs", str(EX_LR_RESUME)]], "cuda"),
+        "park_cpu": ("park_alliances", [EX_PARK], "cpu"),
+        "lm_card": ("train_lm", [EX_LM], "cuda"),
+        "lr_small_cpu": ("escg_longrun", small_lr, "cpu"),
+        "lr_small_card": ("escg_longrun", small_lr, "cuda"),
+        "lm_small_card": ("train_lm", [EX_LM_SMALL], "cuda"),
+        "lm_small_cpu": ("train_lm", [EX_LM_SMALL], "cpu"),
+        "qs_cpu": ("quickstart", [[f"--cutMcs={EX_QS_CPU_MCS}"]], "cpu"),
+        "zh_cpu": ("zhong_ablated_rpsls", [["--mcs", str(EX_ZH_CPU_MCS)]],
+                   "cpu"),
+    }
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        futs = {tag: pool.submit(chain, tag, *job)
+                for tag, job in jobs.items()}
+        res = {tag: f.result() for tag, f in futs.items()}
+
+    def path(tag, *parts):
+        return os.path.join(work, tag, "out", *parts)
+
+    def lines(tag, *parts):
+        with open(path(tag, *parts)) as f:
+            return f.read().splitlines()
+
+    def state(tag):
+        with np.load(path(tag, "longrun", "state.npz")) as z:
+            return {k: z[k] for k in z.files}
+
+    # quickstart: the card's 400 MCS begin with the CPU's 40
+    qs = lines("qs_card", "quickstart", "densities.csv")
+    check(len(qs) == 402 and lines("qs_cpu", "quickstart", "densities.csv")
+          == qs[:EX_QS_CPU_MCS + 2], "[examples] quickstart: the card's "
+          "densities.csv does not begin with the CPU's")
+    check(res["qs_card"][0][2].get("density_counts", 0) > 0,
+          f"[examples] quickstart did not run K4: {res['qs_card'][0][2]}")
+    # zhong: the same prefix
+    zh = lines("zh_card", "zhong", "densities.csv")
+    check(len(zh) == EX_ZH_MCS + 2 and lines("zh_cpu", "zhong",
+                                              "densities.csv")
+          == zh[:EX_ZH_CPU_MCS + 2], "[examples] zhong: the card's "
+          "densities.csv does not begin with the CPU's")
+    # Park: the same printed statistics at the same flags
+    def printed(tag):
+        return [ln for ln in res[tag][0][0].splitlines()
+                if not ln.startswith("[examples]")]
+    check(printed("park_card") == printed("park_cpu"),
+          "[examples] Park: the card printed other statistics than the CPU")
+    check(res["park_card"][0][2].get("density_counts_trials", 0) > 0,
+          f"[examples] Park did not run K4 per trial: "
+          f"{res['park_card'][0][2]}")
+    # the longrun at 512^2: checkpoints, snapshots, the resume, K1 and K4
+    first, again = res["lr_card"]
+    snaps = sorted(n for n in os.listdir(path("lr_card", "longrun"))
+                   if n.startswith("snapshot_"))
+    st = state("lr_card")
+    check(snaps == ["snapshot_00001000.npy", "snapshot_00002000.npy"]
+          and int(st["mcs"]) == EX_LR_RESUME
+          and f"resuming at MCS {EX_LR_MCS}" in again[0],
+          f"[examples] longrun: snapshots {snaps}, state at "
+          f"{int(st['mcs'])}")
+    check(first[2].get("escg_tile_round_fused") == EX_LR_MCS
+          and first[2].get("density_counts", 0) >= EX_LR_MCS
+          and again[2].get("escg_tile_round_fused")
+          == EX_LR_RESUME - EX_LR_MCS,
+          f"[examples] longrun did not run K1 once per MCS and K4: "
+          f"{first[2]}, {again[2]}")
+    # the longrun at 32^2: card and CPU equal after the run and the resume
+    a, b = state("lr_small_card"), state("lr_small_cpu")
+    check(sorted(a) == sorted(b) and all(np.array_equal(a[k], b[k])
+                                         for k in a)
+          and lines("lr_small_card", "longrun", "grid.csv")
+          == lines("lr_small_cpu", "longrun", "grid.csv"),
+          "[examples] longrun at 32^2: the card's state differs from the "
+          "CPU's")
+    untimed = [[ln for ln in r[0].splitlines()
+                if ln.startswith("[longrun]") and " in " not in ln]
+               for r in res["lr_small_card"] + res["lr_small_cpu"]]
+    check(untimed[:2] == untimed[2:], "[examples] longrun at 32^2: the card "
+          "printed other lines than the CPU")
+
+    # train_lm: finite losses; on 2 x 32, within 1e-5 of the CPU's
+    def losses(tag):
+        return [float(ln.split()[3]) for ln in res[tag][0][0].splitlines()
+                if ln.startswith("[examples] loss ")]
+    full = losses("lm_card")
+    check(len(full) == EX_LM_STEPS and all(np.isfinite(full)),
+          f"[examples] train_lm: losses {full}")
+    lc, lp = losses("lm_small_card"), losses("lm_small_cpu")
+    check(len(lc) == len(lp) == 2 and np.allclose(lc, lp, rtol=1e-5,
+                                                  atol=0),
+          f"[examples] train_lm on 2 x 32: card {lc} against CPU {lp}")
+    print(f"[examples] {stamp()} every twin on the card equals the CPU's "
+          f"(quickstart and zhong on the CPU's first {EX_QS_CPU_MCS} MCS, "
+          f"Park at the same flags, the longrun at {EX_LR_SMALL[0]}^2, "
+          f"train_lm on 2 x 32 within 1e-5: {lc} / {lp}); train_lm "
+          f"{EX_LM_STEPS} steps {full[0]:.4f} -> {full[-1]:.4f}; longrun "
+          f"{EX_LR_L}^2 {first[1]:.2f} s + resume {again[1]:.2f} s; phase "
+          f"38 {time.perf_counter() - t_phase:.1f} s; {card}", flush=True)
+    shutil.rmtree(work, ignore_errors=True)
 
 
 def lm_step_profile(torch, fn):
@@ -3306,7 +3515,10 @@ def main():
     # ---- 36-37. the LM appendix on a mesh and a pipeline ----
     lm_mesh_phases(torch, np, dev, card, kept)
 
-    # ---- 38. the kernel table ----
+    # ---- 38. [examples] the examples' twins as a user starts them ----
+    examples_phase(torch, np, card)
+
+    # ---- 39. the kernel table ----
     src = "src/repro_torch/kernels/csrc/escg_update_fused.cu"
     print(json.dumps({"kernels": [
         {"name": "escg_tile_round_fused", "route": "cuda", "source": src,

@@ -125,6 +125,9 @@ class BuiltEngine(NamedTuple):
                                   Tuple[Any, torch.Tensor]]] = None
     # the device mesh of a multi_device engine (LatticeMesh or PodMesh)
     mesh: Any = None
+    # one MCS's (words, shift) from its key, as ``schedule`` derives them
+    # from each ``k1`` of its chain
+    round_inputs: Optional[Callable[[torch.Tensor], Tuple[Any, Any]]] = None
 
 
 @dataclass(frozen=True)
@@ -316,11 +319,14 @@ def _pick_sub_batches(n: int) -> int:
     return 1
 
 
+def _key_inputs(k1: torch.Tensor):
+    return threefry.key_data(k1), 0
+
+
 def _key_schedule(key: torch.Tensor, n_mcs: int):
     """The schedule of ``reference`` and ``batched``: each MCS's words are
     ``key_data(k1)``, and the shift is unused."""
-    return _round_schedule(
-        key, n_mcs, lambda k1: (threefry.key_data(k1), 0))
+    return _round_schedule(key, n_mcs, _key_inputs)
 
 
 # the most proposals a trial batch draws at once: the int64 threefry of a
@@ -369,7 +375,7 @@ def _build_reference(p: "EscgParams", dom: torch.Tensor,
 
     return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
                        device=device, schedule_batch=_key_schedule,
-                       one_mcs_batch=one_mcs_batch)
+                       one_mcs_batch=one_mcs_batch, round_inputs=_key_inputs)
 
 
 @register("batched", EngineCaps(
@@ -416,7 +422,7 @@ def _build_batched(p: "EscgParams", dom: torch.Tensor,
 
     return BuiltEngine(_key_schedule, one_mcs, attempts_per_mcs=n,
                        device=device, schedule_batch=_key_schedule,
-                       one_mcs_batch=one_mcs_batch)
+                       one_mcs_batch=one_mcs_batch, round_inputs=_key_inputs)
 
 
 def _tiled_setup(p: "EscgParams"):
@@ -498,9 +504,11 @@ def _build_tiled(p: "EscgParams", device: torch.device,
     attempts = torch.tensor(n_tiles * k_per_tile, dtype=torch.int32,
                             device=device)
 
+    def round_inputs(k1):
+        return tiled_round_inputs(k1, th, tw)
+
     def schedule(key, n_mcs):
-        return _round_schedule(key, n_mcs,
-                               lambda k1: tiled_round_inputs(k1, th, tw))
+        return _round_schedule(key, n_mcs, round_inputs)
 
     def one_mcs(grid, seed, shift):
         kp = torch.tensor(seed, dtype=torch.int64).to(grid.device)
@@ -531,7 +539,7 @@ def _build_tiled(p: "EscgParams", device: torch.device,
     return BuiltEngine(schedule, one_mcs,
                        attempts_per_mcs=n_tiles * k_per_tile, device=device,
                        schedule_batch=schedule,
-                       one_mcs_batch=one_mcs_batch)
+                       one_mcs_batch=one_mcs_batch, round_inputs=round_inputs)
 
 
 @register("sublattice", EngineCaps(
@@ -623,7 +631,8 @@ def _build_pallas_fused(p: "EscgParams", dom: torch.Tensor,
                        attempts_per_mcs=n_tiles * k_per_tile, device=device,
                        multi_mcs=multi_mcs, schedule_batch=schedule,
                        one_mcs_batch=one_mcs_batch,
-                       multi_mcs_batch=multi_mcs_batch)
+                       multi_mcs_batch=multi_mcs_batch,
+                       round_inputs=lambda k1: fused_round_inputs(k1, th, tw))
 
 
 @register("sharded", EngineCaps(

@@ -57,8 +57,8 @@ import torch
 __all__ = [
     "BlockView", "ObservableSpec", "register_observable", "observable_names",
     "observable_specs", "get_observable", "resolve", "ObsPipeline",
-    "build_pipeline", "ring_init", "ring_push", "ring_push_many",
-    "ring_flush", "ring_capacity",
+    "build_pipeline", "build_observe", "ring_init", "ring_push",
+    "ring_push_many", "ring_flush", "ring_capacity",
 ]
 
 
@@ -249,6 +249,14 @@ def build_pipeline(p) -> ObsPipeline:
 
 
 # ------------------------------ ring buffer -------------------------------- #
+
+def build_observe(p) -> Callable[[torch.Tensor, torch.Tensor],
+                                  torch.Tensor]:
+    """The engine-facing ``observe(grid, counts) -> (width,) float32``
+    row of ``p``'s observables, as the reference's: ``build_pipeline(p)``'s
+    ``row``."""
+    return build_pipeline(p).row
+
 
 def ring_init(capacity: int, row_shape: Tuple[int, ...],
               device) -> Tuple[torch.Tensor, int]:

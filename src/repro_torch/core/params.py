@@ -18,6 +18,14 @@ from typing import Optional, Tuple
 from .engines import engine_names, validate_params as _validate_engine
 
 
+def __getattr__(name: str):
+    # ``params.ENGINES``: the registry's names, read at each access, so an
+    # engine registered after this module loaded is in it
+    if name == "ENGINES":
+        return engine_names()
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 @dataclass(frozen=True)
 class EscgParams:
     # ---- paper Table 3.1 ----

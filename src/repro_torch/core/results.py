@@ -1,15 +1,33 @@
 """Result streams (port of ``repro.core.results``, DESIGN.md §11).
 
-``STREAM_NAMES`` are the streaming observables registered in
+``simulate`` returns a ``SimResult`` and ``trials.run_trials`` a
+``TrialResult``; both satisfy the structural :class:`RunResult`
+protocol. ``STREAM_NAMES`` are the streaming observables registered in
 ``core/observables.py``, read from the registry each time.
 """
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Protocol, runtime_checkable
 
 import numpy as np
 
-__all__ = ["STREAM_NAMES", "encode_observables", "decode_observables"]
+__all__ = ["RunResult", "STREAM_NAMES", "encode_observables",
+           "decode_observables"]
+
+
+@runtime_checkable
+class RunResult(Protocol):
+    """What ``SimResult`` and ``TrialResult`` share: ``observables``
+    (observable name -> host array), the MCS that ran, and a lossless
+    JSON form."""
+
+    @property
+    def observables(self) -> Mapping[str, np.ndarray]: ...
+
+    @property
+    def mcs_completed(self) -> int: ...
+
+    def to_json(self) -> str: ...
 
 
 def __getattr__(name: str):

@@ -53,6 +53,21 @@ def proposal_batch(key: torch.Tensor, n_proposals: int, n_cells: int,
         u_dom=threefry.uniform(k4, n, device=device))
 
 
+def tile_proposal_batch(key: torch.Tensor, n_tiles: int, k_per_tile: int,
+                        interior: int, neighbourhood: int) -> ProposalBatch:
+    """Proposals of the tiled engines from one key: ``split(key, 4)``,
+    then (n_tiles, K) fields with ``cell`` an index into each tile's
+    (th-2) x (tw-2) interior (the kernel adds the +1 inset), as the
+    reference's; drawn on the key's device."""
+    k1, k2, k3, k4 = threefry.split(key, 4)
+    shape = (n_tiles, k_per_tile)
+    return ProposalBatch(
+        cell=threefry.randint(k1, shape, 0, interior),
+        dirn=threefry.randint(k2, shape, 0, neighbourhood),
+        u_act=threefry.uniform(k3, shape),
+        u_dom=threefry.uniform(k4, shape))
+
+
 def tile_stream_batch(key: torch.Tensor, tile_ids: torch.Tensor,
                       k_per_tile: int, interior: int,
                       neighbourhood: int) -> ProposalBatch:

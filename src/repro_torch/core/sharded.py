@@ -463,9 +463,11 @@ def build_engine(params, dom: torch.Tensor,
     attempts = torch.tensor(n_tiles * k_per, dtype=torch.int32,
                             device=mesh.first)
 
+    def round_inputs(k1):
+        return round_stream_inputs(p, k1, th, tw)
+
     def schedule(key, n_mcs):
-        return engines._round_schedule(
-            key, n_mcs, lambda k1: round_stream_inputs(p, k1, th, tw))
+        return engines._round_schedule(key, n_mcs, round_inputs)
 
     def one_mcs(lattice, stream, shift):
         return local_round(lattice, stream, shift), attempts
@@ -476,7 +478,7 @@ def build_engine(params, dom: torch.Tensor,
         schedule, one_mcs, attempts_per_mcs=n_tiles * k_per,
         device=mesh.first, multi_mcs=multi_mcs,
         place=lambda grid: place(grid, mesh), gather=ShardedLattice.gather,
-        counts=sharded_counts)
+        counts=sharded_counts, round_inputs=round_inputs)
 
 
 # --------------------- explicit-proposal round (tests) -------------------- #

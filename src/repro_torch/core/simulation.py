@@ -101,6 +101,26 @@ def _kept_total(parts):
     return torch.stack(parts).sum(dtype=torch.int64) if parts else 0
 
 
+def build_mcs_fn(params: EscgParams, dom=None,
+                 device: Optional[Devices] = None):
+    """``one_mcs(grid, key) -> (grid, kept, attempts)``: one MCS keyed by
+    ``key`` (one ``k1`` of the MCS loop's chain ``key, k1 = split(key)``),
+    on the engine the registry builds for ``params``, as the reference's.
+    ``grid`` is in the engine's own form (``BuiltEngine.place``). Prefer
+    ``engines.build``: its ``schedule`` derives a whole chunk's inputs at
+    once."""
+    built = engines.build(params, dom, device)
+
+    def one_mcs(grid, key):
+        words = torch.zeros(2, dtype=torch.int64)
+        shift = torch.zeros_like(words)
+        words[:], shift[:] = built.round_inputs(key)
+        grid, kept = built.one_mcs(grid, words.tolist(), shift.tolist())
+        return grid, kept, built.attempts_per_mcs
+
+    return one_mcs
+
+
 def build_chunk_fn(params: EscgParams, built: engines.BuiltEngine):
     """``chunk(grid, key, n_mcs) -> (grid, key, counts (n, S+1), kept,
     attempts)``, counts on the device.

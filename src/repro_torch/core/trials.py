@@ -132,6 +132,9 @@ class TrialResult:
 
 # ------------------------------- the pod axis ------------------------------ #
 
+POD_AXIS = "pod"   # the trial axis's name in a mesh (launch.mesh)
+
+
 def pod_devices(device: Optional[Devices] = None,
                 trial_devices: Optional[int] = None
                 ) -> Tuple[torch.device, ...]:

@@ -19,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..parallel.ctx import whole_along
+from ..parallel.ctx import local_heads, tp_matmul, whole_along
 from .common import silu
 from .spec import ParamSpec
 
@@ -163,7 +163,7 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg,
     ct = x.dtype
     x = whole_along(x, 1)      # on a mesh: the chunk loop's slices local
 
-    xz = x @ p["in_proj"].to(ct)
+    xz = tp_matmul(x, p["in_proj"].to(ct))
     xi, z = torch.split(xz, di, dim=-1)
 
     conv_state = None if state is None else state["conv"]
@@ -183,7 +183,7 @@ def mamba1_forward(p: dict, x: torch.Tensor, cfg,
         xc.float(), dt, b_ssm.float(), c_ssm.float(), a, p["d_skip"], h0,
         cfg.ssm_chunk)
     y = y.to(ct) * silu(z)
-    out = y @ p["out_proj"].to(ct)
+    out = tp_matmul(y, p["out_proj"].to(ct))
     return out, {"conv": new_conv, "ssm": h_last}
 
 
@@ -229,34 +229,12 @@ def _segsum_decay(log_a: torch.Tensor) -> torch.Tensor:
     return torch.exp(torch.where(mask, diff, -torch.inf))
 
 
-def mamba2_forward(p: dict, x: torch.Tensor, cfg,
-                   state: Dict[str, torch.Tensor] = None
-                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """SSD chunked form. x: (B,S,d) -> (y, state). Each of the reference's
-    three-operand products is contracted pairwise so that no (b, c, h, i,
-    j, p) tensor appears: the largest intermediate is (B, nc, nh, Q, Q)."""
-    bsz, s, _ = x.shape
-    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
-    ph = di // nh                                      # head dim
-    ct = x.dtype
-    x = whole_along(x, 1)      # on a mesh: the chunk loop's indexing local
-
-    proj = x @ p["in_proj"].to(ct)
-    z, xbc, dt_in = torch.split(proj, [di, di + 2 * n, nh], dim=-1)
-    conv_state = None if state is None else state["conv"]
-    xbc_c = silu(_causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state))
-    new_conv = _new_conv_state(xbc, conv_state, cfg.ssm_conv)
-    xi, b_ssm, c_ssm = torch.split(xbc_c, [di, n, n], dim=-1)
-
-    dt = softplus(dt_in.float() + p["dt_bias"])       # (B,S,nh)
-    a = -torch.exp(p["a_log"])                         # (nh,)
-    log_da = dt * a                                    # (B,S,nh) negative
-    xh = xi.reshape(bsz, s, nh, ph).float()
-    bf = b_ssm.float()                                 # (B,S,n)
-    cf = c_ssm.float()
-    dtx = xh * dt[..., None]                           # dt-weighted input
-
-    q = _chunk_size(s, cfg.ssm_chunk)
+def _ssd_chunks(log_da, dtx, bf, cf, h0, q: int):
+    """The SSD of one batch of sequences, chunks of ``q``: log_da (B,S,nh),
+    dtx (B,S,nh,ph), bf and cf (B,S,n), h0 (B,nh,n,ph) or None (zeros).
+    Returns y (B,S,nh,ph) less the skip term, and the last state."""
+    bsz, s, nh, ph = dtx.shape
+    n = bf.shape[-1]
     nc = s // q
 
     la = log_da.reshape(bsz, nc, q, nh)
@@ -277,8 +255,7 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg,
 
     # inter-chunk recurrence over c: H_{c} = decay_chunk_c * H_{c-1} + S_c
     chunk_decay = torch.exp(cum[:, :, -1, :])          # (B,nc,nh)
-    h = (x.new_zeros((bsz, nh, n, ph), dtype=torch.float32)
-         if state is None else state["ssm"])
+    h = (dtx.new_zeros((bsz, nh, n, ph)) if h0 is None else h0)
     h_prevs = []
     for c in range(nc):
         h_prevs.append(h)
@@ -290,12 +267,51 @@ def mamba2_forward(p: dict, x: torch.Tensor, cfg,
     y_inter = (torch.einsum("bcin,bchnp->bcihp", cq, h_prevs)
                * decay_start[..., None])
 
-    y = (y_intra + y_inter).reshape(bsz, s, nh, ph)
+    return (y_intra + y_inter).reshape(bsz, s, nh, ph), h
+
+
+def mamba2_forward(p: dict, x: torch.Tensor, cfg,
+                   state: Dict[str, torch.Tensor] = None
+                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """SSD chunked form. x: (B,S,d) -> (y, state). Each of the reference's
+    three-operand products is contracted pairwise so that no (b, c, h, i,
+    j, p) tensor appears: the largest intermediate is (B, nc, nh, Q, Q)."""
+    bsz, s, _ = x.shape
+    di, n, nh = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads
+    ph = di // nh                                      # head dim
+    ct = x.dtype
+    x = whole_along(x, 1)      # on a mesh: the chunk loop's indexing local
+
+    proj = tp_matmul(x, p["in_proj"].to(ct))
+    z, xbc, dt_in = torch.split(proj, [di, di + 2 * n, nh], dim=-1)
+    conv_state = None if state is None else state["conv"]
+    xbc_c = silu(_causal_conv(xbc, p["conv_w"], p["conv_b"], conv_state))
+    new_conv = _new_conv_state(xbc, conv_state, cfg.ssm_conv)
+    xi, b_ssm, c_ssm = torch.split(xbc_c, [di, n, n], dim=-1)
+
+    dt = softplus(dt_in.float() + p["dt_bias"])       # (B,S,nh)
+    a = -torch.exp(p["a_log"])                         # (nh,)
+    log_da = dt * a                                    # (B,S,nh) negative
+    xh = xi.reshape(bsz, s, nh, ph).float()
+    bf = b_ssm.float()                                 # (B,S,n)
+    cf = c_ssm.float()
+    dtx = xh * dt[..., None]                           # dt-weighted input
+
+    h0 = () if state is None else (state["ssm"],)
+    q = _chunk_size(s, cfg.ssm_chunk)
+    # the SSD treats each sequence and head on its own: on a mesh each
+    # rank runs its own (DTensor's plans for the 5-D products split and
+    # gather them over again wherever the batch spans two mesh dims)
+    y, h = local_heads(
+        lambda *t: _ssd_chunks(*t[:4], t[4] if h0 else None, q),
+        (log_da, dtx, bf, cf) + h0, (2, 2, None, None, 1)[:4 + len(h0)],
+        (2, 1))
+
     y = y + xh * p["d_skip"][None, None, :, None]
     y = y.reshape(bsz, s, di).to(ct)
     # gated RMSNorm (mamba2)
     yf = y.float() * silu(z.float())
     var = torch.mean(yf * yf, dim=-1, keepdim=True)
     yf = yf * torch.rsqrt(var + 1e-6) * p["norm_scale"].float()
-    out = yf.to(ct) @ p["out_proj"].to(ct)
+    out = tp_matmul(yf.to(ct), p["out_proj"].to(ct))
     return out, {"conv": new_conv, "ssm": h}

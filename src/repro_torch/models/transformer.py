@@ -18,7 +18,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..parallel.ctx import (constrain, local_linear, local_matmul,
-                            local_rows)
+                            local_rows, mesh_mean)
 from . import common, moe as moe_mod, ssm as ssm_mod
 from .spec import ParamSpec, stack_layers, torch_dtype
 
@@ -298,12 +298,13 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
     contracts the logits with a one-hot of the labels, accumulating in
     float32; with one nonzero term that is the gold logit exactly, which
     the gather reads (its backward writes one value per row). Sharded
-    logits give each rank its own tokens' terms (``local_rows``)."""
+    logits give each rank its own tokens' terms (``local_rows``), and
+    their mean is one all-reduce over the mesh (``mesh_mean``)."""
     def per_token(lg, lb):
         logz = torch.logsumexp(lg.float(), dim=-1)
         gold = torch.gather(lg, -1, lb.long()[..., None])[..., 0].float()
         return logz - gold
-    return torch.mean(local_rows(per_token, logits, labels))
+    return mesh_mean(local_rows(per_token, logits, labels))
 
 
 def loss_fn(cfg, params, batch) -> Tuple[torch.Tensor,

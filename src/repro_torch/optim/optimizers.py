@@ -17,7 +17,7 @@ import torch
 
 from ..models import spec as spec_mod
 from ..models.spec import ParamSpec, tree_leaves, tree_map
-from ..parallel.ctx import like
+from ..parallel.ctx import like, sum_squares
 
 
 class Optimizer(NamedTuple):
@@ -27,10 +27,10 @@ class Optimizer(NamedTuple):
 
 
 def global_norm(tree) -> torch.Tensor:
-    total = 0
-    for leaf in tree_leaves(tree):
-        total = total + torch.sum(torch.square(leaf.float()))
-    return torch.sqrt(total)
+    """The l2 norm of every leaf together; over DTensor leaves one
+    all-reduce for the whole mesh (``ctx.sum_squares``), so every rank
+    holds the same bits."""
+    return torch.sqrt(sum_squares(tree_leaves(tree)))
 
 
 def clip_by_global_norm(grads, max_norm: float):

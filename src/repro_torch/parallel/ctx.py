@@ -127,6 +127,126 @@ def whole_along(x, dim: int):
     return x.redistribute(x.device_mesh, want)
 
 
+def _owns(x) -> bool:
+    """Whether this rank's copy of DTensor ``x``'s local block counts in a
+    sum over the mesh: on a mesh dim that replicates ``x``, only the rank
+    at coordinate 0 holds the counted copy."""
+    coord = x.device_mesh.get_coordinate()
+    return all(c == 0 for c, p in zip(coord, x.placements)
+               if p.is_replicate())
+
+
+def _flat_group(mesh):
+    """One process group over every rank of ``mesh``."""
+    import torch.distributed as dist
+    if mesh.ndim == 1:
+        return mesh.get_group()
+    if mesh.size() == dist.get_world_size():
+        return dist.group.WORLD
+    return mesh._flatten().get_group()
+
+
+class _MeshSum(torch.autograd.Function):
+    """Forward: the sum over ``group``'s ranks of each rank's ``part``
+    (``part`` where ``keep``, else zero), one all-reduce. Backward: the
+    replicated grad, unchanged, to every rank's ``part``."""
+
+    @staticmethod
+    def forward(ctx, part, keep: bool, group):
+        from torch.distributed import _functional_collectives as funcol
+        x = part if keep else torch.zeros_like(part)
+        return funcol.wait_tensor(funcol.all_reduce(x, "sum", group))
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+
+def mesh_sum(part: torch.Tensor, mesh, keep: bool = True):
+    """A replicated DTensor on ``mesh`` holding the sum over its ranks of
+    each rank's plain tensor ``part`` (left out where ``keep`` is false),
+    by one all-reduce over the whole mesh, so every rank gets the same
+    bits. DTensor would reduce a sum partial over several mesh dims one
+    dim at a time. On a mesh of one rank, ``part`` itself."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if mesh.size() > 1:
+        part = _MeshSum.apply(part, keep, _flat_group(mesh))
+    return DTensor.from_local(part, mesh, (Replicate(),) * mesh.ndim,
+                              run_check=False)
+
+
+def sum_squares(leaves) -> torch.Tensor:
+    """The sum of squares of every element of ``leaves``, in float32: on
+    plain tensors one running sum, leaf by leaf; on DTensors each rank's
+    running sum over its own blocks (a replicated block counted once),
+    then one all-reduce (``mesh_sum``)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    mesh = next((t.device_mesh for t in leaves if isinstance(t, DTensor)),
+                None)
+    total = 0
+    for leaf in leaves:
+        if mesh is not None:
+            if not isinstance(leaf, DTensor):      # a plain leaf: replicated
+                leaf = DTensor.from_local(leaf, mesh, (Replicate(),)
+                                          * mesh.ndim, run_check=False)
+            if not _owns(leaf):
+                continue
+            leaf = leaf.to_local()
+        total = total + torch.sum(torch.square(leaf.float()))
+    if mesh is None:
+        return total
+    if not torch.is_tensor(total):
+        total = torch.zeros((), dtype=torch.float32,
+                            device=mesh.device_type)
+    return mesh_sum(total, mesh)
+
+
+def mesh_mean(x):
+    """``torch.mean(x)``; a DTensor's as each rank's mean of its own
+    block, weighted by its share of the elements, summed over the mesh by
+    one all-reduce (``mesh_sum``): a replicated DTensor."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return torch.mean(x)
+    local = x.to_local()
+    part = torch.mean(local)
+    if local.numel() != x.numel():
+        part = part * (local.numel() / x.numel())
+    return mesh_sum(part, x.device_mesh, keep=_owns(x))
+
+
+def local_heads(fn, args, heads, out_heads):
+    """``fn(*args)`` for a function that treats each sequence (dim 0) and
+    each head on its own: ``heads[i]`` is ``args[i]``'s head dim (None: a
+    tensor every head shares), ``out_heads`` the outputs' head dims. A
+    DTensor first argument sets the layout: each rank computes its own
+    sequences and heads (``local_map``), the arguments split as the first
+    one is on dim 0 and on its head dim and gathered elsewhere; the grad
+    of a shared tensor is a partial sum over the mesh dims that split the
+    heads. Plain tensors: ``fn(*args)``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    ref = args[0]
+    if not isinstance(ref, DTensor):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    def layout(head, shared):
+        out = []
+        for p in ref.placements:
+            if p.is_shard(0):
+                out.append(Shard(0))
+            elif p.is_shard(heads[0]):
+                out.append(Shard(head) if head is not None else shared)
+            else:
+                out.append(Replicate())
+        return tuple(out)
+    return local_map(
+        fn, out_placements=tuple(layout(h, Replicate()) for h in out_heads),
+        in_placements=tuple(layout(h, Replicate()) for h in heads),
+        in_grad_placements=tuple(layout(h, Partial()) for h in heads),
+        device_mesh=ref.device_mesh, redistribute_inputs=True)(*args)
+
+
 def bincount(x, minlength: int = 0):
     """``torch.bincount`` of a 1-D tensor. DTensor has no sharding rule
     for it, so a DTensor counts each shard (``local_map``) and the shards'
@@ -176,6 +296,40 @@ def local_linear(fn, x, w, kept):
     return local_map(fn, out_placements=(tuple(out_pl),),
                      in_placements=(tuple(x_pl), whole),
                      in_grad_placements=(tuple(x_pl), w_grad),
+                     device_mesh=x.device_mesh,
+                     redistribute_inputs=True)(x, w)
+
+
+def tp_matmul(x, w):
+    """``x @ w`` of (..., k) by a weight (k, f), planned per mesh dim: a
+    dim that splits ``x``'s rows keeps them and gathers ``w`` (FSDP, its
+    grad a partial sum); else one that splits ``w``'s columns keeps them
+    (tensor parallel: the output's last dim split, ``x``'s grad partial);
+    else one that splits the contraction splits ``x``'s last dim too (the
+    output partial); else both whole. DTensor's own plan, where the rows
+    span two mesh dims ('pod', 'data') and the weight's rows two as well,
+    computed more rows than the rank's own. A plain ``x``: ``x @ w``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
+    if not isinstance(x, DTensor):
+        return x @ w
+    from torch.distributed.tensor.experimental import local_map
+    last = x.ndim - 1
+    rep = Replicate()
+    x_pl, w_pl, o_pl, x_gr, w_gr = [], [], [], [], []
+    for px, pw in zip(x.placements, w.placements):
+        if px.is_shard() and px.dim < last:
+            plan = (px, rep, px, px, Partial())
+        elif pw.is_shard(1):
+            plan = (rep, pw, Shard(last), Partial(), pw)
+        elif pw.is_shard(0):
+            plan = (Shard(last), pw, Partial(), Shard(last), pw)
+        else:
+            plan = (rep,) * 5
+        for acc, p in zip((x_pl, w_pl, o_pl, x_gr, w_gr), plan):
+            acc.append(p)
+    return local_map(lambda a, b: a @ b, out_placements=(tuple(o_pl),),
+                     in_placements=(tuple(x_pl), tuple(w_pl)),
+                     in_grad_placements=(tuple(x_gr), tuple(w_gr)),
                      device_mesh=x.device_mesh,
                      redistribute_inputs=True)(x, w)
 

@@ -14,6 +14,17 @@ useful-FLOPs ratio (6·N·tokens per chip over the counted local FLOPs)
 must lie in [0.5, 0.95]: the layer remat recomputes each forward (6/8 of
 the FLOPs at most are model FLOPs), attention and the one-hot embedding
 add their own.
+
+Three more subprocesses, one per family (hybrid zamba2-7b, Mamba-1
+falcon-mamba-7b, dense granite-3-8b), each at ``reduced()`` with 2
+layers, trace a (16-token, batch 4) train step on a (2, 2) ``data x
+model`` fake group and on a (2, 2, 2) ``pod x data x model`` one: the
+second pod must halve each chip's work, as the production meshes'
+records do (FLOPs at most 0.55 of one pod's, local ops at most 1.5
+times). DTensor's own plans for the SSM products, with the batch and the
+weights' rows split over ('pod', 'data'), gathered and split the same
+rows over and over (the multi-pod SSM traces ran 10 to 40 times longer)
+and computed more rows than each chip's own.
 """
 import json
 import os
@@ -89,17 +100,77 @@ print("GUARDED_JSON " + json.dumps(out))
 '''
 
 
-@pytest.fixture(scope="module")
-def guarded():
+POD_CELL = r'''
+import json, sys
+sys.modules["jax"] = None
+sys.modules["repro"] = None
+import repro_torch.launch.mesh as mesh
+import repro_torch.launch.dryrun as dryrun
+from repro_torch.configs import get_arch
+from repro_torch.configs.base import ShapeConfig
+
+arch = sys.argv[1]
+cfg = get_arch(arch).reduced().replace(n_layers=2)
+if cfg.family == "hybrid":
+    cfg = cfg.replace(attn_every=2)
+over = {k: getattr(cfg, k) for k in cfg.__dataclass_fields__ if k != "name"}
+out = {}
+for shape, axes in (((2, 2), ("data", "model")),
+                    ((2, 2, 2), ("pod", "data", "model"))):
+    dryrun.init_fake_world(2 ** len(shape))
+    m = mesh.make_mesh(shape, axes, device_type="cpu")
+    rec = dryrun.lower_lm_cell(arch, ShapeConfig("t", 16, 4, "train"),
+                               len(shape) == 3, cfg_overrides=over, mesh=m)
+    out[len(shape)] = [rec["cost"]["flops"], rec["cost"]["local_ops"]]
+print("POD_JSON " + json.dumps(out))
+'''
+POD_ARCHS = ("zamba2-7b", "falcon-mamba-7b", "granite-3-8b")
+
+
+def _run_all(scripts):
+    """Run each (code, args) at once in a subprocess with ``src`` on the
+    path; returns each one's stdout."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    p = subprocess.run([sys.executable, "-c", GUARDED], capture_output=True,
-                       text=True, timeout=600, env=env)
-    assert p.returncode == 0, p.stdout[-3000:] + p.stderr[-3000:]
-    line = [ln for ln in p.stdout.splitlines()
-            if ln.startswith("GUARDED_JSON ")]
-    assert line, p.stdout[-3000:] + p.stderr[-3000:]
-    return json.loads(line[-1][len("GUARDED_JSON "):])
+    procs = [subprocess.Popen([sys.executable, "-c", code, *args],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env) for code, args in scripts]
+    outs = []
+    for p in procs:
+        out, err = p.communicate(timeout=600)
+        assert p.returncode == 0, out[-3000:] + err[-3000:]
+        outs.append(out)
+    return outs
+
+
+def _json_line(out, tag):
+    line = [ln for ln in out.splitlines() if ln.startswith(tag + " ")]
+    assert line, out[-3000:]
+    return json.loads(line[-1][len(tag) + 1:])
+
+
+@pytest.fixture(scope="module")
+def traced():
+    outs = _run_all([(GUARDED, ())] + [(POD_CELL, (a,)) for a in POD_ARCHS])
+    return {"guarded": _json_line(outs[0], "GUARDED_JSON"),
+            "pods": {a: _json_line(o, "POD_JSON")
+                     for a, o in zip(POD_ARCHS, outs[1:])}}
+
+
+@pytest.fixture(scope="module")
+def guarded(traced):
+    return traced["guarded"]
+
+
+@pytest.mark.parametrize("arch", POD_ARCHS)
+def test_a_second_pod_halves_each_chips_work(traced, arch):
+    """Per chip, two pods do at most 0.55 of one pod's FLOPs (half, with
+    the replicated embedding and norms) and at most 1.5 times its local
+    ops."""
+    (one_flops, one_ops), (two_flops, two_ops) = (
+        traced["pods"][arch]["2"], traced["pods"][arch]["3"])
+    assert two_flops <= 0.55 * one_flops, (one_flops, two_flops)
+    assert two_ops <= 1.5 * one_ops, (one_ops, two_ops)
 
 
 def test_multi_device_modules_import_neither_jax_nor_repro(guarded):
@@ -143,7 +214,9 @@ def test_mini_dryrun_records(guarded, arch):
     mem = rec["memory"]
     assert 0 < mem["argument_size_in_bytes"] <= mem["peak_live_bytes"]
     assert sum(rl["collective_breakdown"].values()) > 0
-    assert rec["collectives"]["group_sizes"] == [2]
+    # along one mesh dim (2 ranks), and the loss's mean and the grad norm
+    # each one all-reduce over the whole mesh (4)
+    assert rec["collectives"]["group_sizes"] == [2, 4]
 
 
 def test_roofline_terms_by_hand():

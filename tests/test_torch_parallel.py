@@ -328,7 +328,7 @@ print("JAX_RESTORED_PORT", flush=True)
 
 
 PORT_WORKER = r'''
-import json, os, sys, time
+import hashlib, json, os, sys, time
 import numpy as np, torch, torch.distributed as dist
 rank, world, port, work, cases = (int(sys.argv[1]), int(sys.argv[2]),
                                   sys.argv[3], sys.argv[4],
@@ -428,6 +428,20 @@ if "optim" in cases:
                     tuple(gs["w"][k].placements) == tuple(dst[k].placements)
                     for k in st)}
     optimizers._SLICE_ELEMS = 1 << 24
+    # the grad norm of leaves split over both mesh dims, over one, and
+    # whole: one all-reduce over the mesh, the same bits on every rank
+    from repro_torch.parallel import roofline
+    tree = {"a": put(rnd(4, 6) - 0.5, (Shard(0), Shard(1))),
+            "b": put(rnd(8) - 0.5, (Replicate(), Shard(0))),
+            "c": put(rnd(2, 3) - 0.5, rep)}
+    with roofline.CollectiveBytes() as cb:
+        norm = optimizers.global_norm(tree)
+    plain = optimizers.global_norm({k: whole(v) for k, v in tree.items()})
+    bits = [None] * world
+    dist.all_gather_object(bits, float(norm.to_local()).hex())
+    report["norm"] = {"calls": cb.calls, "bits": bits,
+                      "err": abs(float(norm.to_local()) - float(plain)),
+                      "placed": [str(p) for p in norm.placements]}
     cases = {k: v for k, v in cases.items() if k != "optim"}
 
 placed_granite = None
@@ -445,12 +459,14 @@ for arch, over in cases.items():
     before = [tuple(t.placements) for t in tree_leaves(state)]
     dbatch = distribute_batch(batch, mesh, rules)
     step = train_lib.make_train_step(model)
-    mets = []
+    mets, bits = [], []
     t0 = time.time()
     for _ in range(2):
         with ctx.activation_sharding(mesh, rules):
             state, m = step(state, dbatch)
         mets.append([float(whole(m["loss"])), float(whole(m["grad_norm"]))])
+        bits.append([float(m[k].to_local()).hex()
+                     for k in ("loss", "grad_norm")])
     after = [tuple(t.placements) for t in tree_leaves(state)]
     assert after == before, arch
     flat = {}
@@ -462,6 +478,14 @@ for arch, over in cases.items():
             flat[prefix] = convert.state_to_numpy(whole(tree))
     walk(state["params"], "params")
     flat["metrics"] = np.asarray(mets)
+    # each rank's own loss and grad norm bits, and a digest of its copy of
+    # every updated param (a replicated block is the rank's own)
+    digest = hashlib.sha256()
+    for t in tree_leaves(state["params"]):
+        digest.update(convert.state_to_numpy(whole(t)).tobytes())
+    every = [None] * world
+    dist.all_gather_object(every, [bits, digest.hexdigest()])
+    report.setdefault("ranks", {})[arch] = every
     if rank == 0:
         np.savez(os.path.join(work, f"port_{arch}.npz"), **flat)
         print("PORT_STEP", arch, round(time.time() - t0, 1), flush=True)
@@ -656,6 +680,40 @@ def test_sharded_step_equals_unsharded_and_reference(worlds, arch):
     _hold(plain, port, f"{arch}: sharded vs unsharded")
     _hold(ref, port, f"{arch}: port vs reference sharded")
     assert np.isfinite(port["metrics"]).all()
+
+
+def _reports(worlds):
+    work, outs = worlds
+    return [json.load(open(os.path.join(work, f)))
+            for f in os.listdir(work) if f.startswith("report_")], outs
+
+
+@pytest.mark.parametrize("arch", list(CASES))
+def test_sharded_step_holds_the_same_bits_on_every_rank(worlds, arch):
+    """After the two clipped steps on the gloo (2, 2) mesh every rank
+    holds the same bits of the loss and grad norm of each step and of
+    its copy of every updated param: the grad norm and the loss's mean
+    are each one all-reduce over the whole mesh."""
+    reps, outs = _reports(worlds)
+    got = [r["ranks"][arch] for r in reps if arch in r.get("ranks", {})]
+    assert got, {k: v[-2000:] for k, v in outs.items()}
+    ranks = got[0]
+    assert len(ranks) == 4
+    assert all(r == ranks[0] for r in ranks[1:]), ranks
+
+
+def test_global_norm_is_one_all_reduce(worlds):
+    """``global_norm`` of leaves split over both mesh dims, over one, and
+    whole: one all-reduce of its 4-byte sum over the 4 ranks (the
+    roofline's collective counter), replicated, the same bits on every
+    rank, and within 1e-6 of the whole tensors' norm."""
+    reps, outs = _reports(worlds)
+    n = [r["norm"] for r in reps if "norm" in r]
+    assert n, {k: v[-2000:] for k, v in outs.items()}
+    n = n[0]
+    assert n["calls"] == [["all-reduce", 4, 4]], n
+    assert len(set(n["bits"])) == 1 and len(n["bits"]) == 4, n
+    assert n["err"] <= 1e-6 and set(n["placed"]) <= {"R", "Replicate()"}
 
 
 def test_workers_ran_clean(worlds):
