@@ -82,6 +82,7 @@ from .lattice import counts as _lattice_counts
 from .lattice import trial_counts as _trial_counts
 from .observables import observable_names
 from .rng import ProposalBatch, proposal_batch, round_shift, tile_stream_batch
+from .tracing import ARBITRATION, DRAWS, span
 
 if TYPE_CHECKING:  # params validates through this module
     from .params import EscgParams
@@ -411,10 +412,12 @@ def _build_batched(p: "EscgParams", dom: torch.Tensor,
         for grp in _trial_groups(grids.shape[0], b_sub):
             g, k_grp = grids[grp], 0
             for j in range(n_sub):
-                batch = proposal_batch(keys[grp, j], b_sub, n,
-                                       p.neighbourhood)
-                g, k_sub = batched_mod.run_proposals_trials(
-                    g, batch, t_eps, t_eps_mu, dom, p.flux)
+                with span(DRAWS):
+                    batch = proposal_batch(keys[grp, j], b_sub, n,
+                                           p.neighbourhood)
+                with span(ARBITRATION):
+                    g, k_sub = batched_mod.run_proposals_trials(
+                        g, batch, t_eps, t_eps_mu, dom, p.flux)
                 k_grp = k_grp + k_sub
             out.append(g)
             kept.append(k_grp)

@@ -36,6 +36,10 @@ Invariants, as in the reference (``tests/test_torch_trials.py``):
 * **Chunked stasis early exit.** Stasis (<= 1 species alive) and
   extinctions are recorded per MCS from the masks, but the driver stops
   only at a chunk boundary, once every real trial is in stasis.
+* **Spans.** Each chunk's enqueue, its key chain, copies, updates, rows
+  and ring push, the wait for its outputs and their fold run inside the
+  spans of ``core/tracing.py``, tagged with the call's study and the
+  chunk's ordinal; the hooks run outside them.
 """
 from __future__ import annotations
 
@@ -52,6 +56,8 @@ from . import observables as obs_mod
 from .device import Devices, resolve_device, resolve_devices
 from .params import EscgParams
 from .results import decode_observables, encode_observables
+from .tracing import (CHUNK, FOLD, KEYCHAIN, OBSERVABLES, RING_PUSH,
+                      SCHEDULE_COPY, UPDATE, WAIT, new_study, span)
 
 
 # ------------------------------ TrialResult ------------------------------- #
@@ -222,37 +228,48 @@ def build_trial_chunk(p: EscgParams, built: engines.BuiltEngine,
         if n_mcs < 1:
             raise ValueError(f"a chunk runs at least one MCS, got {n_mcs}")
         n = keys.shape[0]
-        keys, words, shifts = built.schedule_batch(keys, n_mcs)
-        sched = torch.stack([words, shifts]).to(built.device)
+        with span(KEYCHAIN):
+            keys, words, shifts = built.schedule_batch(keys, n_mcs)
+        sched = torch.stack([words, shifts])
+        with span(SCHEDULE_COPY):
+            sched = sched.to(built.device)
         att = torch.full((n,), n_mcs * built.attempts_per_mcs,
                          dtype=torch.int64)
         cnts, rows = [], []
         if k_group > 1:
-            held = pipe.grid_values(grids) if pipe is not None else None
+            held = None
+            if pipe is not None:
+                with span(OBSERVABLES):
+                    held = pipe.grid_values(grids)
             q, r = divmod(n_mcs, k_group)
             start = 0
             for size in [k_group] * q + ([r] if r else []):
                 stop = start + size
-                grids, c = built.multi_mcs_batch(
-                    grids, sched[0, :, start:stop].contiguous(),
-                    sched[1, :, start:stop].contiguous())
+                with span(UPDATE):
+                    grids, c = built.multi_mcs_batch(
+                        grids, sched[0, :, start:stop].contiguous(),
+                        sched[1, :, start:stop].contiguous())
                 cnts.append(c)
                 if pipe is not None:
-                    rows.append(pipe.row_held(c.transpose(0, 1), held))
-                    held = pipe.grid_values(grids)
+                    with span(OBSERVABLES):
+                        rows.append(pipe.row_held(c.transpose(0, 1), held))
+                        held = pipe.grid_values(grids)
                 start = stop
-            kept = att.to(built.device)        # the megakernel drops nothing
+            with span(SCHEDULE_COPY):
+                kept = att.to(built.device)    # the megakernel drops nothing
         else:
             sched = sched.transpose(1, 2).contiguous()   # (2, n_mcs, n, 2)
             kept_parts = []
             for m in range(n_mcs):
-                grids, kept_m = built.one_mcs_batch(grids, sched[0, m],
-                                                    sched[1, m])
+                with span(UPDATE):
+                    grids, kept_m = built.one_mcs_batch(grids, sched[0, m],
+                                                        sched[1, m])
                 c = built.counts_batch(grids, s)
                 kept_parts.append(kept_m)
                 cnts.append(c[:, None])
                 if pipe is not None:
-                    rows.append(pipe.row(grids, c)[None])
+                    with span(OBSERVABLES):
+                        rows.append(pipe.row(grids, c)[None])
             kept = torch.stack(kept_parts).sum(dim=0, dtype=torch.int64)
         cnts = torch.cat(cnts, dim=1)                # (n, n_mcs, S + 1)
         out = (grids, keys, cnts[:, -1], cnts[:, :, 1:] > 0, kept, att)
@@ -274,7 +291,8 @@ def build_trial_obs_chunk(p: EscgParams, built: engines.BuiltEngine):
 
     def chunk(grids, keys, ring, pos, n_mcs: int):
         grids, keys, cnts, alive, kept, att, rows = inner(grids, keys, n_mcs)
-        ring, pos = obs_mod.ring_push_many(ring, pos, rows)
+        with span(RING_PUSH):
+            ring, pos = obs_mod.ring_push_many(ring, pos, rows)
         return grids, keys, ring, pos, cnts, alive, kept, att
 
     return chunk, pipe
@@ -304,7 +322,8 @@ class _Pod:
     the whole batch of a composed mesh; its engine, chunk and state."""
 
     def __init__(self, p: EscgParams, built: engines.BuiltEngine,
-                 trial_keys: torch.Tensor, obs_rows: int):
+                 trial_keys: torch.Tensor, obs_rows: int, index: int = 0):
+        self.index = index
         self.device = built.device
         self.built = built
         init = built.init_batch or make_trial_init(p, built.device)
@@ -318,32 +337,40 @@ class _Pod:
         else:
             self.chunk, self.pipe = build_trial_chunk(p, self.built), None
 
-    def dispatch(self, m: int):
+    def dispatch(self, m: int, study: Optional[int] = None,
+                 chunk: Optional[int] = None):
         """Enqueue a chunk of ``m`` MCS and the copies of its outputs to
-        the host; returns them and the event that marks them done."""
-        if self.pipe is not None:
-            (self.grids, self.keys, self.ring, self.pos, cnts, alive, kept,
-             att) = self.chunk(self.grids, self.keys, self.ring, self.pos, m)
-        else:
-            self.grids, self.keys, cnts, alive, kept, att = self.chunk(
-                self.grids, self.keys, m)
-        outs = [alive, cnts, kept, att]
-        if self.ring is not None:
-            outs.append(self.ring)
-        host = [_to_host(t) for t in outs]
-        event = None
-        if self.device.type == "cuda":
-            event = torch.cuda.Event()
-            event.record(torch.cuda.current_stream(self.device))
+        the host, inside the span ``repro_torch.chunk`` of chunk ``chunk``
+        of study ``study``; returns them and the event that marks them
+        done."""
+        with span(CHUNK, study, chunk, self.index):
+            if self.pipe is not None:
+                (self.grids, self.keys, self.ring, self.pos, cnts, alive,
+                 kept, att) = self.chunk(self.grids, self.keys, self.ring,
+                                         self.pos, m)
+            else:
+                self.grids, self.keys, cnts, alive, kept, att = self.chunk(
+                    self.grids, self.keys, m)
+            outs = [alive, cnts, kept, att]
+            if self.ring is not None:
+                outs.append(self.ring)
+            host = [_to_host(t) for t in outs]
+            event = None
+            if self.device.type == "cuda":
+                event = torch.cuda.Event()
+                event.record(torch.cuda.current_stream(self.device))
         return host, event
 
 
-def _collect(pending):
+def _collect(pending, study: Optional[int] = None,
+             chunk: Optional[int] = None):
     """The host copies of one chunk of every device, joined over the
-    trial axis: (alive, counts, kept, attempts, ring or None)."""
-    for _, event in pending:
-        if event is not None:
-            event.synchronize()
+    trial axis: (alive, counts, kept, attempts, ring or None). The wait
+    for them is the span ``repro_torch.wait``."""
+    with span(WAIT, study, chunk):
+        for _, event in pending:
+            if event is not None:
+                event.synchronize()
     parts = list(zip(*(host for host, _ in pending)))
     alive, cnts, kept, att = (np.concatenate([t.numpy() for t in part])
                               for part in parts[:4])
@@ -444,7 +471,7 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
         per = n_pad // n_dev
         trial_keys = fold_trial_keys(key, n_pad)
         pods = [_Pod(p, engines.build(p, dom, d),
-                     trial_keys[i * per:(i + 1) * per], obs_rows)
+                     trial_keys[i * per:(i + 1) * per], obs_rows, i)
                 for i, d in enumerate(devices)]
 
     s = p.species
@@ -458,9 +485,15 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
     kept_tot = att_tot = 0
     done = 0
     rows_all = []
+    # the spans of this call carry its study and each chunk's ordinal
+    study = new_study()
+    issued = folded = 0
 
     def dispatch(m):
-        return [pod.dispatch(m) for pod in pods]
+        nonlocal issued
+        out = [pod.dispatch(m, study, issued) for pod in pods]
+        issued += 1
+        return out
 
     # One chunk is kept in flight ahead of the host (async_stats): the
     # collect below waits for the chunk being folded while its successor
@@ -471,22 +504,25 @@ def run_trials(params, dom: Optional[np.ndarray] = None,
     while pending is not None:
         m_next = min(chunk_len, n_mcs - done - m)
         ahead = dispatch(m_next) if m_next and async_stats else None
-        alive_h, cnts_h, kept_h, att_h, rings = _collect(pending)
-        if rings is not None:
-            rows_all.append(np.concatenate(
-                [obs_mod.ring_flush(r, done, done + m) for r in rings],
-                axis=1))
-        final_cnts = cnts_h
-        kept_tot += int(kept_h[:n_trials].sum())
-        att_tot += int(att_h[:n_trials].sum())
+        alive_h, cnts_h, kept_h, att_h, rings = _collect(pending, study,
+                                                         folded)
+        with span(FOLD, study, folded):
+            if rings is not None:
+                rows_all.append(np.concatenate(
+                    [obs_mod.ring_flush(r, done, done + m) for r in rings],
+                    axis=1))
+            final_cnts = cnts_h
+            kept_tot += int(kept_h[:n_trials].sum())
+            att_tot += int(att_h[:n_trials].sum())
 
-        first_dead = _first_true_mcs(~alive_h, done)     # (n_pad, S)
-        ext = np.where((ext < 0) & (first_dead > 0), first_dead, ext)
-        first_stasis = _first_true_mcs(alive_h.sum(axis=2) <= 1, done)
-        stasis = np.where((stasis < 0) & (first_stasis > 0), first_stasis,
-                          stasis)
-        surv = alive_h[:, -1, :]
-        done += m
+            first_dead = _first_true_mcs(~alive_h, done)     # (n_pad, S)
+            ext = np.where((ext < 0) & (first_dead > 0), first_dead, ext)
+            first_stasis = _first_true_mcs(alive_h.sum(axis=2) <= 1, done)
+            stasis = np.where((stasis < 0) & (first_stasis > 0),
+                              first_stasis, stasis)
+            surv = alive_h[:, -1, :]
+            done += m
+        folded += 1
         for hook in hooks:
             hook(done, surv[:n_trials].sum(axis=1))
         if stop_on_stasis and (stasis[:n_trials] >= 0).all():
