@@ -279,11 +279,17 @@ def ring_push_many(ring: torch.Tensor, pos: int,
                    rows: torch.Tensor) -> Tuple[torch.Tensor, int]:
     """Push ``rows[t]`` in order t = 0..T-1 (in place): where T exceeds the
     capacity only the last ``capacity`` rows survive, as in T single
-    pushes."""
+    pushes. ``pos`` and the capacity are host integers, so the surviving
+    rows land in one run of slots, or two where they wrap: one or two
+    slice writes, with no index tensor to copy to the ring's device and
+    so nothing that waits for it."""
     cap, n = ring.shape[0], rows.shape[0]
     drop = max(0, n - cap)
-    slots = (torch.arange(pos + drop, pos + n) % cap).to(ring.device)
-    ring[slots] = rows[drop:].to(ring.dtype)
+    start = (pos + drop) % cap
+    head = min(n - drop, cap - start)
+    ring[start:start + head] = rows[drop:drop + head]
+    if drop + head < n:
+        ring[:n - drop - head] = rows[drop + head:]
     return ring, pos + n
 
 

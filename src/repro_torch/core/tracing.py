@@ -31,16 +31,17 @@ functions leaves its spans too, with ``study`` ``None``):
                            chain to the host copies and the event record
 ``repro_torch.keychain``   the host threefry chain of the chunk's MCS
                            (``BuiltEngine.schedule_batch``)
-``repro_torch.schedule_copy``  the chain's copy to the device (and under
-                           ``k_mcs > 1`` the attempts'), with any wait
-                           the copy imposes on the host
+``repro_torch.schedule_copy``  the chain's copy to the device through
+                           pinned memory, which does not wait for the
+                           device (and under ``k_mcs > 1`` the kept
+                           counts' fill on the device)
 ``repro_torch.update``     one ``one_mcs_batch`` or ``multi_mcs_batch``
 ``repro_torch.draws``      ``batched``'s proposal draws in the update
 ``repro_torch.arbitration``  ``batched``'s arbitration in the update
 ``repro_torch.observables``  the observables' rows of the chunk's MCS
-``repro_torch.ring_push``  the rows' push into the device ring, whose slot
-                           indices are copied to the device from pageable
-                           memory, a copy that waits for the device's queue
+``repro_torch.ring_push``  the rows' push into the device ring: one or two
+                           slice writes at slots the host knows, no copy
+                           from the host and no wait for the device
 ``repro_torch.wait``       the host blocked on the device for a chunk's
                            copies to the host
 ``repro_torch.fold``       the ring's flush and the fold of the masks

@@ -26,13 +26,19 @@ Invariants, as in the reference (``tests/test_torch_trials.py``):
 * **Chunked streaming.** A chunk of MCS runs on the devices without a host
   decision: its key chain of every trial is computed on the host at once
   with the batched threefry (``schedule_batch``) and copied to the device
-  once; the host sees the per-MCS alive-species masks, the final counts,
-  the kept counts and the observable ring once per chunk.
+  once, through pinned memory; the host sees the per-MCS alive-species
+  masks, the final counts, the kept counts and the observable ring once
+  per chunk.
 * **Async statistics.** With ``async_stats`` chunk k's outputs are copied
   to pinned host memory and an event is recorded before chunk k+1 is
   enqueued, so the host's accounting of chunk k overlaps chunk k+1 on the
   card. The result is bit-identical to ``async_stats=False``: a
-  speculative chunk past an early exit is dropped unread.
+  speculative chunk past an early exit is dropped unread. Nothing in a
+  chunk's enqueue waits for the card (the key chain goes up through
+  pinned memory, the ring push writes slices at slots the host knows,
+  the outputs come down into pinned memory), so chunk k+1's key chain
+  runs on the host while chunk k runs on the card; the host waits only
+  for the event, in ``repro_torch.wait``.
 * **Chunked stasis early exit.** Stasis (<= 1 species alive) and
   extinctions are recorded per MCS from the masks, but the driver stops
   only at a chunk boundary, once every real trial is in stasis.
@@ -232,7 +238,7 @@ def build_trial_chunk(p: EscgParams, built: engines.BuiltEngine,
             keys, words, shifts = built.schedule_batch(keys, n_mcs)
         sched = torch.stack([words, shifts])
         with span(SCHEDULE_COPY):
-            sched = sched.to(built.device)
+            sched = _to_device(sched, built.device)
         att = torch.full((n,), n_mcs * built.attempts_per_mcs,
                          dtype=torch.int64)
         cnts, rows = [], []
@@ -255,8 +261,9 @@ def build_trial_chunk(p: EscgParams, built: engines.BuiltEngine,
                         rows.append(pipe.row_held(c.transpose(0, 1), held))
                         held = pipe.grid_values(grids)
                 start = stop
-            with span(SCHEDULE_COPY):
-                kept = att.to(built.device)    # the megakernel drops nothing
+            with span(SCHEDULE_COPY):          # the megakernel drops nothing
+                kept = torch.full((n,), n_mcs * built.attempts_per_mcs,
+                                  dtype=torch.int64, device=built.device)
         else:
             sched = sched.transpose(1, 2).contiguous()   # (2, n_mcs, n, 2)
             kept_parts = []
@@ -305,6 +312,15 @@ def _first_true_mcs(mask: np.ndarray, offset: int) -> np.ndarray:
     hit = mask.any(axis=1)
     first = mask.argmax(axis=1) + offset + 1
     return np.where(hit, first, -1)
+
+
+def _to_device(t: torch.Tensor, device: torch.device) -> torch.Tensor:
+    """A host tensor's copy on ``device``: on a card through pinned memory
+    without waiting for it (the caching host allocator holds the block
+    until the copy is done), ``t`` itself on the CPU."""
+    if device.type != "cuda":
+        return t.to(device)
+    return t.pin_memory().to(device, non_blocking=True)
 
 
 def _to_host(t: torch.Tensor) -> torch.Tensor:

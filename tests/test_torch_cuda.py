@@ -12,11 +12,12 @@ across ``k_mcs`` and observables, the ``pallas`` engine to
 ``sublattice``, ``batched`` to the CPU and to S1 dropping conflicts, and
 the ``sharded`` engine on a mesh of one card's entries to its
 single-device twins; the trial forms of K1-K4 to their plain versions,
-and ``run_trials`` on the card to the CPU; the table forms of K1 and K3
-and K4s per trial (every block of every trial of a card) to their plain
-versions, and ``sharded_pod`` on a (2, 2, 2) mesh of one card's entries
-to the single-device trial engines; one LM train step on the card to the
-CPU for each model family (dense, vlm, moe, ssm, hybrid, encdec), and a checkpoint round trip of card tensors (bfloat16, int32, a
+and ``run_trials`` on the card to the CPU and, with no chunk's enqueue
+waiting for the card, to itself without async statistics; the table
+forms of K1 and K3 and K4s per trial (every block of every trial of a
+card) to their plain versions, and ``sharded_pod`` on a (2, 2, 2) mesh of
+one card's entries to the single-device trial engines; one LM train
+step on the card to the CPU for each model family (dense, vlm, moe, ssm, hybrid, encdec), and a checkpoint round trip of card tensors (bfloat16, int32, a
 ``ShardedLattice`` restored onto other meshes of the card).
 """
 import hashlib
@@ -691,6 +692,46 @@ def test_trial_chunk_on_the_card_equals_per_trial_simulate(cuda, engine,
                               cnt[t].cpu().numpy() / p.n_cells), t
         assert s.kept_fraction == \
             int(kept_sum[t]) / (6 * built.attempts_per_mcs), t
+
+
+@pytest.mark.parametrize("k_mcs", [1, 5])
+def test_trial_chunk_enqueue_never_waits_for_the_card(cuda, k_mcs,
+                                                      monkeypatch):
+    """No chunk's enqueue (``_Pod.dispatch``: the key chain's copy, the
+    updates, the rows and their ring push, the copies to the host)
+    synchronises the host with the card, so the next chunk's key chain
+    overlaps the card's work; the run equals ``async_stats=False`` bit for
+    bit, observables included."""
+    from repro_torch.core import trials
+
+    def run(async_stats):
+        return trials.run_trials(
+            make_scenario("park3"), n_trials=4,
+            engine=EngineConfig(engine="pallas_fused", tile=(8, 32),
+                                k_mcs=k_mcs),
+            run=RunConfig(length=256, height=256, mcs=15, chunk_mcs=5,
+                          observables=("densities", "interface_length")),
+            stop_on_stasis=False, async_stats=async_stats, device=cuda)
+
+    want = run(False)       # also builds the kernels outside the watch
+    dispatch, calls = trials._Pod.dispatch, []
+
+    def watched(self, *args, **kwargs):
+        mode = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            out = dispatch(self, *args, **kwargs)
+        finally:
+            torch.cuda.set_sync_debug_mode(mode)
+        calls.append(args)
+        return out
+
+    monkeypatch.setattr(trials._Pod, "dispatch", watched)
+    got = run(True)
+    assert len(calls) == 3
+    assert got.mcs_completed == 15
+    assert set(got.observables) == {"densities", "interface_length"}
+    assert got.to_json() == want.to_json()
 
 
 # ------- the table forms: every block of every trial of a card --------- #

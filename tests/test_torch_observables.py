@@ -136,10 +136,14 @@ def test_pipeline_rows_match_reference():
 # -------------------------------- ring ----------------------------------- #
 
 @pytest.mark.parametrize("cap,n,per_push", [(3, 7, 1), (4, 10, 3),
-                                            (5, 5, 5), (2, 9, 4)])
+                                            (5, 5, 5), (2, 9, 4),
+                                            (6, 14, 4), (4, 11, 6),
+                                            (5, 13, 7)])
 def test_ring_matches_reference_with_wraparound(cap, n, per_push):
     """Pushes of ``per_push`` rows at a time past the capacity leave the
-    same ring, and ``ring_flush`` unrolls (and drops) the same rows."""
+    same ring, and ``ring_flush`` unrolls (and drops) the same rows: among
+    them pushes that start mid-ring and wrap, and pushes longer than the
+    capacity from a position that is not a multiple of it."""
     rows = np.arange(n * 2, dtype=np.float32).reshape(n, 2)
     ring, pos = obs.ring_init(cap, (2,), "cpu")
     jring, jpos = jobs.ring_init(cap, (2,))
